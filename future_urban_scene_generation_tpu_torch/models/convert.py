@@ -1,0 +1,130 @@
+"""Weight bridge: JAX-package (Flax) parameter trees -> the port's modules.
+
+The port's modules carry the reference's state-dict names, so the JAX package's
+flax -> torch exporter logic (models/convert.py ``export_state_dict`` :91-183,
+copied here as numpy code, not imported) maps a flax tree onto
+``module.state_dict()``'s keys and shapes; ``load_state_dict(strict=True)`` then
+loads it. The reference's own ``.pth`` files load into the same modules directly.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterable, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+def _merge_path(parts: Sequence[str]) -> Tuple[str, ...]:
+    merged = []
+    for p in parts:
+        if p.isdigit() and merged:
+            merged[-1] = merged[-1] + "_" + p
+        else:
+            merged.append(p)
+    return tuple(merged)
+
+
+def _lookup(tree: dict, path: Tuple[str, ...], leaf_name: str):
+    node = tree
+    for p in path:
+        if p not in node:
+            raise KeyError(f"flax params missing module {'/'.join(path)}")
+        node = node[p]
+    if leaf_name not in node:
+        raise KeyError(f"flax params missing leaf {'/'.join(path)}/{leaf_name}")
+    return np.asarray(node[leaf_name])
+
+
+def export_state_dict(
+    params: dict,
+    template: Dict[str, Sequence[int]],
+    convt_keys: Iterable[str] = (),
+    flatten_linear_key: Optional[str] = None,
+    flatten_linear_chw: Optional[Tuple[int, int, int]] = None,
+) -> Dict[str, np.ndarray]:
+    """Flax params -> a state dict with ``template``'s keys (key -> shape):
+    conv kernels HWIO -> OIHW, conv-transpose kernels (keys in ``convt_keys``)
+    (kh,kw,in,out) -> (in,out,kh,kw), linear kernels transposed (with an optional
+    HWC -> CHW flatten permutation for ``flatten_linear_key``), batch-norm
+    gamma/beta/running stats, weight-norm v/g."""
+    convt_keys = set(convt_keys)
+    tree = params.get("params", params)
+    bn_prefixes = {k[: -len("running_mean")] for k in template if k.endswith("running_mean")}
+    out: Dict[str, np.ndarray] = {}
+    for key in template:
+        shape = tuple(int(s) for s in template[key])
+        parts = key.split(".")
+        leaf = parts[-1]
+        path = _merge_path(parts[:-1])
+        module_prefix = key[: -len(leaf)]
+        if leaf == "num_batches_tracked":
+            out[key] = np.asarray(0, np.int64)
+            continue
+        if leaf == "weight":
+            if module_prefix in bn_prefixes:
+                out[key] = _lookup(tree, path, "gamma")
+            elif len(shape) == 4:
+                k_flax = _lookup(tree, path, "kernel")
+                out[key] = (k_flax.transpose(2, 3, 0, 1) if key in convt_keys
+                            else k_flax.transpose(3, 2, 0, 1))
+            elif len(shape) == 2:
+                arr = _lookup(tree, path, "kernel").T
+                if key == flatten_linear_key:
+                    c, h, w = flatten_linear_chw
+                    arr = arr.reshape(arr.shape[0], h, w, c).transpose(0, 3, 1, 2)
+                    arr = arr.reshape(arr.shape[0], -1)
+                out[key] = arr
+            else:
+                out[key] = _lookup(tree, path, "weight")
+        elif leaf == "bias":
+            out[key] = _lookup(tree, path, "beta" if module_prefix in bn_prefixes else "bias")
+        elif leaf in ("running_mean", "running_var"):
+            out[key] = _lookup(tree, path, leaf)
+        elif leaf == "weight_v":
+            out[key] = _lookup(tree, path, "v").transpose(3, 2, 0, 1)
+        elif leaf == "weight_g":
+            out[key] = _lookup(tree, path, "g").reshape(shape)
+        else:
+            out[key] = _lookup(tree, path, leaf)
+        if tuple(out[key].shape) != shape:
+            raise ValueError(f"exported {key} has shape {out[key].shape}, template wants {shape}")
+    return {
+        k: v if np.asarray(v).dtype == np.int64
+        else np.ascontiguousarray(np.asarray(v, np.float32))
+        for k, v in out.items()
+    }
+
+
+def load_jax_params(module: torch.nn.Module, params_numpy: dict,
+                    convt_keys: Iterable[str] = (),
+                    flatten_linear_key: Optional[str] = None,
+                    flatten_linear_chw: Optional[Tuple[int, int, int]] = None
+                    ) -> torch.nn.Module:
+    """Load a flax parameter tree (numpy leaves) into ``module`` with
+    ``load_state_dict(strict=True)``; the template is the module's own state
+    dict (key -> shape)."""
+    template = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+    sd = export_state_dict(params_numpy, template, convt_keys, flatten_linear_key,
+                           flatten_linear_chw)
+    ref = module.state_dict()
+    module.load_state_dict(
+        {k: torch.as_tensor(np.array(v)).to(ref[k].dtype) for k, v in sd.items()}, strict=True
+    )
+    return module
+
+
+def vgg_classifier_tree(params: dict) -> dict:
+    """The JAX ``VGG19Classifier`` nests its conv trunk under ``trunk``; hoist it so
+    the tree's paths match torchvision's ``features.N`` keys."""
+    tree = dict(params.get("params", params))
+    trunk = tree.pop("trunk", {})
+    return {"params": {**trunk, **tree}}
+
+
+def load_vgg_classifier(module: torch.nn.Module, params_numpy: dict) -> torch.nn.Module:
+    """``load_jax_params`` for the CAD classifier: trunk hoisted, and the first
+    linear's input permuted from flax's (H, W, C) flatten to torch's (C, H, W)."""
+    return load_jax_params(
+        module, vgg_classifier_tree(params_numpy),
+        flatten_linear_key="classifier.0.weight", flatten_linear_chw=(512, 7, 7),
+    )
