@@ -1,12 +1,16 @@
 """Quickest proof that the PyTorch port runs on the GPU: builds the CUDA kernels
 from the checkout, holds each against its plain PyTorch version, holds the port on
-the GPU against the port on the CPU, then drives ``runner.run_scene`` on the
-benchmark scene (1080p, 4 vehicles, 6 steps, 10 CADs of 1,944 triangles) in the
-bf16 serving config.
+the GPU against the port on the CPU, drives ``runner.run_scene`` on the benchmark
+scene (1080p, 4 vehicles, 6 steps, 10 CADs of 1,944 triangles) in the bf16 serving
+config, then trains the full-width ICN through ``cli.train --model icn`` and the
+trainer API (float32 and bfloat16 inputs).
 
-    python3 chip_smoke.py                 # every phase, one GPU
-    python3 chip_smoke.py --phases k1,k2  # a subset (device and build always run)
-    python3 chip_smoke.py --profile       # also write a torch.profiler table of one scene
+    python3 chip_smoke.py                    # every phase, one GPU
+    python3 chip_smoke.py --phases k3,train  # a subset (device and build always run)
+    python3 chip_smoke.py --profile          # also write a torch.profiler table of one scene
+
+Kernel launches in the ``kernels`` line: K1 and K2 from the main phase's three
+scenes, K3 from the train phase's CLI run; K4's entry has no caller on any path.
 
 Any failure raises and exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it holds the kernels' record.
@@ -16,6 +20,7 @@ import argparse
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -26,7 +31,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-ALL_PHASES = ("k1", "k2", "gpu_vs_cpu", "main")
+ALL_PHASES = ("k1", "k2", "k3", "gpu_vs_cpu", "main", "train")
 # Budgets of the JAX package's kernel tests (tests/test_pallas_raster.py:20-30, 130-151).
 RASTER_PIX_TOL, RASTER_PIX_FRAC = 1e-4, 0.005
 DENSE_BG_FRAC, DENSE_PIX_TOL, DENSE_PIX_FRAC = 0.005, 1e-3, 0.01
@@ -249,6 +254,89 @@ def phase_k2(device):
                 max_abs_err=err16, ms=ms, plain_ms=plain_ms)
 
 
+# The ICN trainer's stem conv (batch 8, 256^2 reflect-padded by 3, 21 -> 64) and
+# the three cases of tests/test_layers.py:222-224 (O = 12 among them).
+K3_STEM = (8, 262, 262, 21, 7, 64)
+K3_CASES = ((2, 22, 26, 21, 7, 16), (1, 19, 20, 3, 3, 8), (2, 38, 34, 6, 5, 12))
+
+
+def _small_cin_inputs(shape, device, dtype, seed):
+    n, h, w, c, k, o = shape
+    rng = np.random.RandomState(seed)
+    x = torch.as_tensor(rng.rand(n, h, w, c).astype(np.float32), device=device).to(dtype)
+    kern = torch.as_tensor((rng.rand(k, k, c, o) - 0.5).astype(np.float32), device=device)
+    return x, kern.to(dtype)
+
+
+def phase_k3(device):
+    """K3 and K4's entry against the plain version in float64 on the same inputs,
+    the gated conv's gradients against F.conv2d's autograd, and K3's time."""
+    from future_urban_scene_generation_tpu_torch.models import layers
+    from future_urban_scene_generation_tpu_torch.ops import cuda_conv
+
+    worst = {}
+    for entry in ("conv_small_cin_v2", "conv_small_cin"):
+        fn = getattr(cuda_conv, entry)
+        for i, shape in enumerate((K3_STEM,) + K3_CASES):
+            x, kern = _small_cin_inputs(shape, device, torch.float32, seed=20 + i)
+            got = fn(x, kern)
+            ref = cuda_conv.conv_small_cin_plain(x.double(), kern.double())
+            torch.cuda.synchronize()
+            err32 = (got.double() - ref).abs().max().item()
+            mag = ref.abs().max().item()
+            tol32 = 3e-5 * max(1.0, mag / 10.0)  # as phase_k2
+            x, kern = x.bfloat16(), kern.bfloat16()
+            got = fn(x, kern)
+            ref = cuda_conv.conv_small_cin_plain(x.double(), kern.double())
+            torch.cuda.synchronize()
+            diff = (got.double() - ref).abs()
+            bound = 2.0 ** -7 * ref.abs() + 1e-4 * ref.abs().max()
+            ok = err32 <= tol32 and bool((diff <= bound).all()) and got.dtype == torch.bfloat16
+            log(f"k3[{entry} {shape}]: f32 max abs err {err32:.3e} (tol {tol32:.3e}); bf16 max "
+                f"abs err {diff.max().item():.3e}, worst ratio to its bound "
+                f"{(diff / bound).max().item():.3f} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{entry} disagrees with its plain version at {shape}")
+            worst[entry] = max(worst.get(entry, 0.0), err32)
+
+    # The gated conv's Function on the card: K3 forward, F.conv2d's gradients.
+    x, kern = _small_cin_inputs(K3_STEM, device, torch.float32, seed=30)
+    w = kern.permute(3, 2, 0, 1).contiguous().requires_grad_()
+    x = x.requires_grad_()
+    y = layers._SmallCinConv.apply(x, w, 0)
+    g = torch.as_tensor(np.random.RandomState(31).randn(*y.shape).astype(np.float32),
+                        device=device)
+    gx, gw = torch.autograd.grad(y, (x, w), g)
+    ref = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w).permute(0, 2, 3, 1)
+    rx, rw = torch.autograd.grad(ref, (x, w), g)
+    for name, a, b in (("x", gx, rx), ("w", gw, rw)):
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        log(f"k3[grad {name}]: Function vs F.conv2d autograd, max abs diff / max |g| "
+            f"{rel:.3e} (tol 1e-4)")
+        if not rel <= 1e-4:
+            raise AssertionError(f"the gated conv's gradient for {name} disagrees")
+
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, kern = _small_cin_inputs(K3_STEM, device, dtype, seed=40)
+        times[dtype] = [cuda_ms(lambda f=f: f(x, kern), iters=10, warmup=2) for f in (
+            cuda_conv.conv_small_cin_v2, cuda_conv.conv_small_cin,
+            cuda_conv.conv_small_cin_plain)]
+        log(f"k3 time at the training stem {K3_STEM} ({dtype}): K3 {times[dtype][0]:.3f} ms, "
+            f"K4 entry {times[dtype][1]:.3f} ms; plain version (F.conv2d in f32) "
+            f"{times[dtype][2]:.3f} ms")
+    ms3, ms4, plain_ms = times[torch.float32]
+    src = "future_urban_scene_generation_tpu_torch/csrc/conv_small_cin.cu"
+    return [
+        dict(name="conv_small_cin_v2", route="cuda", source=src,
+             replaces="future_urban_scene_generation_tpu/ops/pallas_conv.py:64",
+             max_abs_err=worst["conv_small_cin_v2"], ms=ms3, plain_ms=plain_ms),
+        dict(name="conv_small_cin", route="cuda", source=src,
+             replaces="future_urban_scene_generation_tpu/ops/pallas_conv.py:35",
+             max_abs_err=worst["conv_small_cin"], ms=ms4, plain_ms=plain_ms),
+    ]
+
+
 def phase_gpu_vs_cpu(device):
     """Port on the GPU against port on the CPU, float32, on the oracle scene of
     the CPU slice test (tests/test_torch_pipeline.py)."""
@@ -282,6 +370,199 @@ def phase_gpu_vs_cpu(device):
     if not (torch.equal(cc, gc) and torch.equal(good, torch.isfinite(ge))
             and torch.allclose(ge[good], ce[good], rtol=1e-3, atol=1e-4)):
         raise AssertionError("port on GPU disagrees with port on CPU (pose)")
+
+
+def _train_loop(device, card, sample, dtype, steps=10):
+    """A fixed-batch ICN training loop through the trainer API at lr 1e-3: one
+    warm-up step, then ``steps`` steps timed one by one with CUDA events."""
+    from future_urban_scene_generation_tpu_torch.ops import cuda_conv
+    from future_urban_scene_generation_tpu_torch.pipeline import training
+
+    trainer = training.ICNTrainer(lr=1e-3)
+    state = trainer.init(torch.Generator().manual_seed(0), device)
+    x, y = sample.inputs.to(dtype), sample.targets.to(dtype)
+    trainer.train_step(state, x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_conv.SMALL_CIN_V2_LAUNCHES = 0
+    events, l1 = [], []
+    for _ in range(steps):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        _, metrics = trainer.train_step(state, x, y)
+        ev[1].record()
+        events.append(ev)
+        l1.append(metrics["l_l1"])
+    torch.cuda.synchronize()
+    launches = cuda_conv.SMALL_CIN_V2_LAUNCHES
+    times = [a.elapsed_time(b) for a, b in events]
+    l1 = [float(v) for v in l1]
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    b = x.shape[0]
+    log(f"train[{dtype}]: batch {b} at 256^2, step times {[round(t, 2) for t in times]} ms; "
+        f"median {med:.2f} ms = {b * 1000.0 / med:.2f} samples/s; peak memory {peak:.3f} GiB; "
+        f"K3 launches {launches}; l_l1 {l1[0]:.5f} -> {l1[-1]:.5f} over {steps} steps ({card})")
+    if not (all(math.isfinite(v) for v in l1) and l1[-1] < l1[0]):
+        raise AssertionError(f"train[{dtype}]: l_l1 does not fall on a fixed batch: {l1}")
+    if launches <= 0:
+        raise AssertionError(f"train[{dtype}]: the ICN stem never reached kernel K3")
+    return med
+
+
+def _grad_distances(got, ref, zero, net):
+    """Per gradient tensor (dicts name -> tensor): (max|diff| / max|ref|, relative
+    L2). The biases in ``zero`` (instance-norm-fed: zero in exact arithmetic) get
+    max|g| of either side over their conv's max|weight gradient| instead, twice."""
+    out = {}
+    for name, r in ref.items():
+        g = got[name]
+        if f"{net}.{name}" in zero:
+            scale = ref[name.replace(".bias", ".weight")].abs().max()
+            v = (max(g.abs().max(), r.abs().max()) / scale).item()
+            out[name] = (v, v)
+        else:
+            out[name] = (((g - r).abs().max() / r.abs().max()).item(),
+                         ((g - r).norm() / r.norm()).item())
+    return out
+
+
+def _step_on_both(trainer, sample, dtype, device):
+    """One ``train_step`` from the same seeded weights on the same two pairs, on the
+    CPU and on the card, in ``dtype``. Returns {device: (losses, {net: grads})}."""
+    from future_urban_scene_generation_tpu_torch.pipeline import training
+
+    out = {}
+    for dev in ("cpu", device):
+        state = trainer.init(torch.Generator().manual_seed(5), dev)
+        state.gen.to(dtype)
+        state.dis.to(dtype)
+        state.gen_opt, state.dis_opt = training.make_optimizers(state.gen, state.dis,
+                                                                trainer.lr)
+        _, metrics = trainer.train_step(state, sample.inputs[:2].to(dev, dtype),
+                                        sample.targets[:2].to(dev, dtype))
+        out[dev] = ({k: float(v) for k, v in metrics.items()},
+                    {net: {n: p.grad.double().cpu() for n, p in
+                           getattr(state, net).named_parameters()} for net in ("dis", "gen")})
+    return out, training.instance_norm_fed_biases(state)
+
+
+def _train_gpu_vs_cpu(device, sample):
+    """One ICN step from the same weights on the same batch (2 datagen pairs at
+    256^2, full width: ngf 64, ndf 64), on the card and on the CPU.
+
+    float32, the training dtype: the losses agree to rtol 1e-3. Its gradients are
+    held only to a relative L2 distance of 5e-2 per tensor, which catches a wrong
+    backward (the channels_last avg-pool fault moved them by ~90% of max|g|): a
+    float32 step puts some ReLU inputs within rounding of 0 (on a 32^2 input
+    already, one lies within 1.7e-8 of max|x| of it), and each such input that
+    rounds to the other side of the kink on one device moves the generator's
+    gradients by up to ~1% of max|g| (PERF.md §6).
+
+    float64, the same step: no input lies within float64 rounding of a kink, and
+    every gradient tensor agrees to atol 1e-6 * max|g|, the losses to rtol 1e-6;
+    the instance-norm-fed biases, zero in exact arithmetic, are held to within 1e-6
+    of their conv's max|weight gradient|. float64 runs every op of the step on the
+    card as float32 does, except the K3 stem (built for float32 and bfloat16 only),
+    which stays on ``F.conv2d``; the k3 phase holds K3 and its gradients."""
+    from future_urban_scene_generation_tpu_torch.pipeline import training
+
+    trainer = training.ICNTrainer()
+    bad = []
+    for dtype, loss_tol, tol, metric in ((torch.float32, 1e-3, 5e-2, 1),
+                                         (torch.float64, 1e-6, 1e-6, 0)):
+        res, zero = _step_on_both(trainer, sample, dtype, device)
+        (lc, gc), (lg, gg) = res["cpu"], res[device]
+        bad += [f"{dtype} {k}" for k in lc if not abs(lg[k] - lc[k]) <= loss_tol * abs(lc[k])]
+        worst = {}
+        for net in ("dis", "gen"):
+            dist = _grad_distances(gg[net], gc[net], zero, net)
+            bad += [f"{dtype} {net}.{n}" for n, d in dist.items() if not d[metric] <= tol]
+            worst[net] = tuple(max(d[i] for n, d in dist.items() if f"{net}.{n}" not in zero)
+                               for i in (0, 1))
+        log(f"train[gpu_vs_cpu {dtype}]: losses cpu {lc} gpu {lg} (rtol {loss_tol:g}); "
+            "gradients, worst max|diff| / max|g| and relative L2: " + ", ".join(
+                f"{net} {w[0]:.3e} / {w[1]:.3e}" for net, w in worst.items())
+            + f" (tol {tol:g} on {('max|diff| / max|g|', 'relative L2')[metric]}; "
+            "instance-norm-fed biases held near zero)")
+    if bad:
+        raise AssertionError(f"ICN step on the GPU disagrees with the CPU: {bad[:8]}")
+
+
+def _pool_backward_check(device):
+    """The discriminator's downsampler (layers.avg_pool_torch) differentiated on the
+    card against float64 on the CPU: the CUDA backward of F.avg_pool2d is wrong on
+    channels_last inputs, which the layer avoids."""
+    from future_urban_scene_generation_tpu_torch.models.layers import avg_pool_torch
+
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(8, 256, 256, 3, generator=gen, dtype=torch.float64)
+    gy = torch.randn(8, 128, 128, 3, generator=gen, dtype=torch.float64)
+    grads = []
+    for dev, dtype in (("cpu", torch.float64), (device, torch.float32)):
+        xx = x.to(dev, dtype).requires_grad_()
+        grads.append(torch.autograd.grad(avg_pool_torch(xx), xx, gy.to(dev, dtype))[0].cpu())
+    rel = ((grads[1].double() - grads[0]).abs().max() / grads[0].abs().max()).item()
+    log(f"train[avg_pool backward]: card f32 vs CPU f64, max|diff| / max|g| {rel:.3e} (tol 1e-5)")
+    if not rel <= 1e-5:
+        raise AssertionError("the discriminator's avg-pool backward is wrong on the card")
+
+
+def phase_train(device, card):
+    """The ICN trainer at full width (ngf 64, ndf 64, 256^2, batch 8): the CLI with
+    a resume, fixed-batch loops in float32 and on bfloat16 inputs, and one step on
+    the card against one on the CPU. Returns the launches of K3 and of K4's entry
+    in the CLI run (K4 has no caller on the path: 0)."""
+    from future_urban_scene_generation_tpu_torch.cli import train as cli_train
+    from future_urban_scene_generation_tpu_torch.ops import cuda_conv, cuda_raster
+    from future_urban_scene_generation_tpu_torch.pipeline import datagen
+
+    out = os.path.join(OUT_DIR, "train_icn")
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ["--model", "icn", "--batch", "8", "--device", "cuda", "--out", out,
+            "--log-interval", "1", "--save-interval", "3"]
+    cuda_conv.SMALL_CIN_V2_LAUNCHES = cuda_conv.SMALL_CIN_LAUNCHES = 0
+    cuda_raster.LAUNCHES = 0
+    t0 = time.perf_counter()
+    cli_train.main(argv + ["--steps", "3"])
+    torch.cuda.synchronize()
+    launches = {"conv_small_cin_v2": cuda_conv.SMALL_CIN_V2_LAUNCHES,
+                "conv_small_cin": cuda_conv.SMALL_CIN_LAUNCHES}
+    log(f"train[cli]: 3 steps in {time.perf_counter() - t0:.2f} s (cold); launches: "
+        f"{launches}, raster (datagen) {cuda_raster.LAUNCHES}")
+    metrics = os.path.join(out, "metrics.jsonl")
+
+    def logged():
+        with open(metrics) as f:
+            return [json.loads(line) for line in f]
+
+    if not (os.path.exists(os.path.join(out, "checkpoint.pt"))
+            and [r["step"] for r in logged()] == [0, 1, 2]):
+        raise AssertionError("train[cli]: metrics.jsonl or the checkpoint is missing")
+    cli_train.main(argv + ["--steps", "4", "--resume"])
+    recs = logged()
+    if [r["step"] for r in recs] != [0, 1, 2, 3]:
+        raise AssertionError(f"train[cli]: --resume did not pick up at iteration 3: {recs}")
+    if not all(math.isfinite(r[k]) for r in recs for k in ("l_d", "l_g", "l_l1")):
+        raise AssertionError("train[cli]: non-finite losses")
+    losses = [(r["l_d"], r["l_g"], r["l_l1"]) for r in recs]
+    log(f"train[cli]: resumed at iteration 3; losses {losses}")
+    if launches["conv_small_cin_v2"] <= 0:
+        raise AssertionError("train[cli]: the ICN stem never reached kernel K3")
+    shutil.copy(metrics, os.path.join(OUT_DIR, "train_metrics.jsonl"))
+    shutil.rmtree(out)  # the ~116 MB checkpoint stays on the machine
+
+    generator, bank, frame, intrinsic = cli_train.icn_setup(0, device)
+    with torch.no_grad():
+        sample = datagen.icn_batch(generator, bank, frame, intrinsic, batch=8)
+        dg_ms = cuda_ms(lambda: datagen.icn_batch(generator, bank, frame, intrinsic, batch=8),
+                        iters=3, warmup=1)
+    log(f"train[datagen]: {dg_ms:.2f} ms per batch of 8 pairs ({card})")
+    for dtype in (torch.float32, torch.bfloat16):
+        _train_loop(device, card, sample, dtype)
+    _pool_backward_check(device)
+    _train_gpu_vs_cpu(device, sample)
+    return launches
 
 
 def _psnr(a, b):
@@ -429,10 +710,14 @@ def main():
         kernels.append(phase_k1(device))
     if "k2" in phases:
         kernels.append(phase_k2(device))
+    if "k3" in phases:
+        kernels.extend(phase_k3(device))
     if "gpu_vs_cpu" in phases:
         phase_gpu_vs_cpu(device)
     if "main" in phases:
         launches = phase_main(device, args.profile, smi)
+    if "train" in phases:
+        launches.update(phase_train(device, smi))
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")

@@ -30,6 +30,13 @@ int fusg_stem_conv(const void* sketch, const void* central, const void* planes,
                    int n_planes, int k, int pad, int cout, int s_repeat,
                    cudaStream_t stream);
 
+// K3 and K4's entry (conv_small_cin.cu): stride-1 VALID k x k conv of a pre-padded
+// NHWC input, any cout. dtype 0 = float32, 1 = bfloat16 (input, weights and
+// output); f32 accumulation.
+//   x (n, hp, wp, cin), wmat (k, k, cin, cout) HWIO, out (n, hp-k+1, wp-k+1, cout)
+int fusg_conv_small_cin(const void* x, const void* wmat, void* out, int dtype, int n,
+                        int hp, int wp, int cin, int k, int cout, cudaStream_t stream);
+
 #ifdef __cplusplus
 }
 #endif

@@ -1,24 +1,29 @@
-"""ICN — the Warp&Learn image completion network (``G_Resnet``), NHWC.
+"""ICN — the Warp&Learn image completion network (``G_Resnet``), NHWC, and its
+training discriminator.
 
 Counterpart of the JAX package's models/icn.py ``GResnet`` (:191) with its
-``from_stem`` entry (:201): the scene computes the stem (enc_content.model.0:
-reflect-pad 3, 7x7 conv, instance norm, ReLU) with kernel K2 and enters the network
-after it. Module names are the reference's (warp_learn/models.py:38-208), so
-``gnet_*.pth`` loads unchanged; the decoder's up stages are the plain nearest-2x
-upsample + reflect-pad + 5x5 conv of the reference.
+``from_stem`` entry (:201), ``DNLayersMulti`` (:218) and ``gan_loss`` (:261): the
+scene computes the stem (enc_content.model.0: reflect-pad 3, 7x7 conv, instance
+norm, ReLU) with kernel K2 and enters the network after it; the trainer runs the
+full forward, whose stem conv is kernel K3. Module names are the reference's
+(warp_learn/models.py:38-208), so ``gnet_*.pth`` loads unchanged; the decoder's up
+stages are the plain nearest-2x upsample + reflect-pad + 5x5 conv of the reference.
 """
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 
 from future_urban_scene_generation_tpu_torch.models.layers import (
     Conv2d,
     WarpLearnLayerNorm,
     activation,
+    avg_pool_torch,
     instance_norm,
     reflect_pad,
     upsample2x_nearest,
 )
+from future_urban_scene_generation_tpu_torch.ops.resize import resize_nearest
 
 
 class Conv2dBlock(nn.Module):
@@ -123,5 +128,77 @@ class GResnet(nn.Module):
 
     def forward(self, x, from_stem: bool = False):
         """``from_stem=True``: x is the stem's activation (after its conv, instance
-        norm and ReLU); the network continues from enc_content.model.1."""
+        norm and ReLU); the network continues from enc_content.model.1. The full
+        forward runs the stem conv through kernel K3 (layers.small_cin_gate)."""
         return self.dec(self.enc_content(x, from_stem=from_stem))
+
+
+class InstanceNorm(nn.Module):
+    """The affine-free instance norm slot of the discriminator's Sequential."""
+
+    def forward(self, x):
+        return instance_norm(x)
+
+
+class Activation(nn.Module):
+    """A parameter-free activation slot of the discriminator's Sequential."""
+
+    def __init__(self, name: str):
+        super().__init__()
+        self.fn = activation(name)
+
+    def forward(self, x):
+        return self.fn(x)
+
+
+class DNLayersMulti(nn.Module):
+    """Multi-scale PatchGAN discriminator (warp_learn/models.py:211-259): ``num_d``
+    towers, each on the input average-pooled once more than the last. Each tower is
+    the reference's Sequential, so its convs sit at ``model_{i}.{0,2,5,8}`` (for
+    ``n_layers`` 2) — the keys ``convert`` maps from the JAX names ``model_{i}_{seq}``.
+    Returns the towers' patch logits, finest first."""
+
+    def __init__(self, input_nc: int = 3, ndf: int = 64, n_layers: int = 2, num_d: int = 2):
+        super().__init__()
+        self.num_d = num_d
+        for i in range(num_d):
+            self.add_module(f"model_{i}", self._tower(input_nc, int(round(ndf / 2 ** i)),
+                                                      n_layers))
+
+    @staticmethod
+    def _tower(input_nc, ndf, n_layers):
+        layers = [Conv2d(input_nc, ndf, 4, 2, 1), Activation("lrelu")]
+        nf = ndf
+        for n in range(1, n_layers):
+            nf_next = ndf * min(2 ** n, 8)
+            layers += [Conv2d(nf, nf_next, 4, 2, 1), InstanceNorm(), Activation("lrelu")]
+            nf = nf_next
+        nf_next = ndf * min(2 ** n_layers, 8)
+        layers += [Conv2d(nf, nf_next, 4, 1, 1), InstanceNorm(), Activation("lrelu"),
+                   Conv2d(nf_next, 1, 4, 1, 1)]
+        return nn.Sequential(*layers)
+
+    def forward(self, x):
+        results = []
+        for i in range(self.num_d):
+            results.append(getattr(self, f"model_{i}")(x))
+            if i != self.num_d - 1:
+                x = avg_pool_torch(x, 3, 2, 1)
+        return results
+
+
+def gan_loss(predictions, target_is_real: bool, smooth_noise=None, mask=None):
+    """LSGAN MSE summed over the scales' predictions (warp_learn/models.py:262-320).
+    ``smooth_noise`` is a label-smoothing offset added to the target; ``mask``
+    (N, H, W, 1) is brought to each scale by nearest resampling."""
+    total = 0.0
+    for pred in predictions:
+        target = torch.full_like(pred, 1.0 if target_is_real else 0.0)
+        if smooth_noise is not None:
+            target = target + smooth_noise
+        if mask is not None:
+            mask_down = resize_nearest(mask, (pred.shape[1], pred.shape[2]))
+            pred = pred * mask_down
+            target = target * mask_down
+        total = total + torch.mean((pred - target) ** 2)
+    return total

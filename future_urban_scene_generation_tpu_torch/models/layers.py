@@ -1,8 +1,10 @@
 """Torch-convention building blocks that run on NHWC tensors.
 
-Counterpart of the subset of the JAX package's models/layers.py the four scene
-networks use: the plain conv (``TorchConv`` :612), the weight-normalized conv
-(``WNConv`` :831), ``instance_norm`` (:865) with float32 statistics, the ICN's
+Counterpart of the subset of the JAX package's models/layers.py the scene networks
+and the ICN trainer use: the plain conv (``TorchConv`` :612) and the
+weight-normalized conv (``WNConv`` :831), both dispatching gated convs to kernel K3
+as ``_dispatch_conv`` (:588) does, ``instance_norm`` (:865) with float32
+statistics, ``avg_pool_torch`` (:943), the ICN's
 ``WarpLearnLayerNorm`` (:879), TF-ordered ``depth_to_space`` (:968) and the nearest
 2x upsample the ICN decoder composes with a reflect-padded 5x5 conv, as the plain
 ``upconv2x_nearest_reflect_reference`` (:1009) does.
@@ -21,12 +23,54 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from future_urban_scene_generation_tpu_torch.ops import cuda_conv
+
+
+def small_cin_gate(cin: int, k: int, stride: int, dtype=torch.float32) -> bool:
+    """Whether a conv goes to kernel K3: the JAX gate (layers.py:274-290, stride 1,
+    no dilation, 1 < k <= 9, C_in <= 32, k * C_in >= 128) without its TPU-only
+    clauses — bf16-only was the TPU's 16 MB scoped-VMEM budget, and the backend and
+    Pallas switches name the TPU — so float32 and bfloat16, the dtypes K3 is built
+    for, both reach K3; float64 (reference checks only) stays on ``F.conv2d``."""
+    return (dtype in (torch.float32, torch.bfloat16) and stride == 1 and 1 < k <= 9
+            and cin <= 32 and k * cin >= 128)
+
+
+class _SmallCinConv(torch.autograd.Function):
+    """A gated conv: forward by kernel K3 (``cuda_conv.conv_small_cin_v2``) on the
+    zero-padded NHWC input, backward the plain conv's gradients for x and w, as
+    the JAX package's ``_dispatch_conv`` custom VJP (layers.py:588-609) does."""
+
+    @staticmethod
+    def forward(ctx, x, weight, padding: int):
+        ctx.save_for_backward(x, weight)
+        ctx.padding = padding
+        if padding:
+            x = F.pad(x, (0, 0, padding, padding, padding, padding))
+        return cuda_conv.conv_small_cin_v2(x, weight.permute(2, 3, 1, 0))
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        p = ctx.padding
+        grad_x, grad_w, _ = torch.ops.aten.convolution_backward(
+            grad.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), weight, None, [1, 1],
+            [p, p], [1, 1], False, [0, 0], 1,
+            [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False],
+        )
+        return (grad_x.permute(0, 2, 3, 1) if grad_x is not None else None), grad_w, None
+
 
 def conv_nhwc(x, weight, bias, stride: int = 1, padding: int = 0):
     """torch Conv2d (zero padding, cross-correlation) on NHWC ``x`` with an OIHW
-    ``weight``; the weight is cast to x's dtype, the bias added afterwards."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype), None, stride, padding)
-    return y.permute(0, 2, 3, 1) + bias.to(y.dtype)
+    ``weight``; the weight is cast to x's dtype, the bias added afterwards. A conv
+    that passes :func:`small_cin_gate` runs through kernel K3."""
+    weight = weight.to(x.dtype)
+    if small_cin_gate(x.shape[-1], weight.shape[-1], stride, x.dtype):
+        y = _SmallCinConv.apply(x, weight, padding)
+    else:
+        y = F.conv2d(x.permute(0, 3, 1, 2), weight, None, stride, padding).permute(0, 2, 3, 1)
+    return y + bias.to(y.dtype)
 
 
 def reflect_pad(x, pad: int):
@@ -42,7 +86,12 @@ def reflect_pad(x, pad: int):
 
 
 def activation(name):
-    return {"none": lambda x: x, "relu": F.relu, "tanh": torch.tanh}[name]
+    return {
+        "none": lambda x: x,
+        "relu": F.relu,
+        "lrelu": lambda x: F.leaky_relu(x, 0.2),
+        "tanh": torch.tanh,
+    }[name]
 
 
 class Conv2d(nn.Module):
@@ -81,18 +130,25 @@ class WNConv2d(nn.Module):
 
 def instance_norm(x, eps: float = 1e-5):
     """torch InstanceNorm2d defaults on NHWC: per-sample, per-channel, biased
-    variance, no affine. Statistics in float32, normalization in x's dtype."""
-    x32 = x.to(torch.float32)
+    variance, no affine. Statistics in float32 (float64 for float64 inputs),
+    normalization in x's dtype.
+
+    The variance is two-pass, E[(x - mean)^2]. The JAX package's single-pass
+    E[x^2] - mean^2 (layers.py:868-874, one fused reduce on the TPU) cancels when a
+    channel's mean is large against its spread, and its backward carries that
+    cancellation into the gradients: float32 ICN generator gradients then stray
+    from float64 by up to ~1% of max|g| (tests/test_torch_training.py)."""
+    x32 = x.to(torch.promote_types(x.dtype, torch.float32))
     mean = x32.mean(dim=(1, 2), keepdim=True)
-    m2 = (x32 * x32).mean(dim=(1, 2), keepdim=True)
-    var = torch.clamp(m2 - mean * mean, min=0.0)
+    var = torch.square(x32 - mean).mean(dim=(1, 2), keepdim=True)
     scale = torch.rsqrt(var + eps)
     return (x - mean.to(x.dtype)) * scale.to(x.dtype)
 
 
 class WarpLearnLayerNorm(nn.Module):
     """The ICN's LayerNorm (warp_learn/models.py:15-35): per-sample statistics over
-    all of (H, W, C), unbiased std, divides by (std + eps), per-channel affine."""
+    all of (H, W, C), unbiased std, divides by (std + eps), per-channel affine.
+    Statistics in float32 (float64 for float64 inputs)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -102,7 +158,7 @@ class WarpLearnLayerNorm(nn.Module):
 
     def forward(self, x):
         n = x[0].numel()
-        x32 = x.to(torch.float32)
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         mean = x32.mean(dim=(1, 2, 3), keepdim=True)
         m2 = (x32 * x32).mean(dim=(1, 2, 3), keepdim=True)
         var = torch.clamp(m2 - mean * mean, min=0.0) * (n / max(n - 1, 1))
@@ -133,6 +189,20 @@ def upsample2x_nearest(x):
 def max_pool2(x):
     """torch MaxPool2d(2, 2) on NHWC."""
     return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+
+
+def avg_pool_torch(x, window: int = 3, stride: int = 2, padding: int = 1):
+    """torch AvgPool2d(window, stride, padding, count_include_pad=False) on NHWC
+    (the multi-scale discriminator's downsampler).
+
+    The pool runs on an NCHW-contiguous copy: on a channels_last input (the NHWC
+    view), the CUDA backward of ``F.avg_pool2d`` returns a wrong input gradient —
+    84-110% of max|g| off a float64 reference on an H100 with torch 2.11, for any
+    channel count and upstream-gradient layout — while NCHW inputs are exact to
+    float32 rounding. chip_smoke.py's train phase checks this backward."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2).contiguous(), window, stride, padding,
+                     count_include_pad=False)
+    return y.permute(0, 2, 3, 1)
 
 
 @torch.no_grad()

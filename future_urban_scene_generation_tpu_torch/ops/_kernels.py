@@ -1,9 +1,10 @@
 """Builds and loads the port's CUDA kernels (``csrc/*.cu``) as one shared library.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into a plain-C-interface
-shared library under ``future_urban_scene_generation_tpu_torch/_build/`` at first
-use, named by a hash of the sources and flags (a changed source rebuilds), and bound
-with ctypes. A missing ``nvcc`` or a failed build raises: there is no fallback.
+The sources are compiled with ``nvcc`` for ``sm_90a``, one process per source in
+parallel, and linked into a plain-C-interface shared library under
+``future_urban_scene_generation_tpu_torch/_build/`` at first use, named by a hash of
+the sources and flags (a changed source rebuilds), and bound with ctypes. A missing
+``nvcc`` or a failed build raises: there is no fallback.
 """
 from __future__ import annotations
 
@@ -19,10 +20,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("raster.cu", "stem_conv.cu")
+SOURCES = ("raster.cu", "stem_conv.cu", "conv_small_cin.cu")
 HEADERS = ("fusg_kernels.h",)
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
@@ -63,16 +64,28 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *[str(CSRC / s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        # One nvcc per source, all started together, then one link.
+        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / s),
+                              "-o", o], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+            for s, o in zip(SOURCES, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        BUILD_LOG = "".join(logs)
+        failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{BUILD_LOG}")
+        lib = os.path.join(tmp, out.name)
+        link = subprocess.run([nvcc, "-shared", "-o", lib, *objs], capture_output=True,
+                              text=True)
+        BUILD_LOG += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{BUILD_LOG}")
+        os.replace(lib, out)
     BUILD_SECONDS = time.perf_counter() - t0
     return out
 
@@ -88,5 +101,7 @@ def load():
     lib.fusg_raster.restype = i
     lib.fusg_stem_conv.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.fusg_stem_conv.restype = i
+    lib.fusg_conv_small_cin.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    lib.fusg_conv_small_cin.restype = i
     _LIB = lib
     return lib

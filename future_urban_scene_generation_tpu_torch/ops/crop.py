@@ -126,7 +126,8 @@ def crop_to_frame_coords(kp_norm: torch.Tensor, window: Window) -> torch.Tensor:
     return torch.stack([x, y], dim=-1)
 
 
-def _inside_window(window: Window, h: int, w: int, device) -> torch.Tensor:
+def inside_window(window: Window, h: int, w: int, device) -> torch.Tensor:
+    """(B, h, w) bool: frame pixels inside each window (fields (B,))."""
     xs = torch.arange(w, dtype=torch.float32, device=device)[None, None, :]
     ys = torch.arange(h, dtype=torch.float32, device=device)[None, :, None]
     x0 = window.x_start[:, None, None]
@@ -135,6 +136,25 @@ def _inside_window(window: Window, h: int, w: int, device) -> torch.Tensor:
         (xs >= x0) & (xs < x0 + window.w[:, None, None])
         & (ys >= y0) & (ys < y0 + window.h[:, None, None])
     )
+
+
+def stitch(frame: torch.Tensor, crop_img: torch.Tensor, window: Window,
+           mask_frame: torch.Tensor) -> torch.Tensor:
+    """Paste crops back onto frames through their windows where the frame-resolution
+    mask is set (JAX crop.stitch :116, batched). frame (B, H, W, C) or (H, W, C)
+    shared by the batch; crop_img (B, S, S, C); window fields (B,); mask_frame
+    (B, H, W) bool. Returns (B, H, W, C)."""
+    h, w = frame.shape[-3], frame.shape[-2]
+    out_size = crop_img.shape[1]
+    canvas = scale_and_translate(
+        crop_img,
+        (h, w),
+        torch.stack([window.h / out_size, window.w / out_size], dim=-1),
+        torch.stack([window.y_start, window.x_start], dim=-1),
+        antialias=False,
+    )
+    write = (inside_window(window, h, w, frame.device) & mask_frame)[..., None]
+    return torch.where(write, canvas, frame)
 
 
 def stitch_packed(frame: torch.Tensor, crop_img: torch.Tensor, window: Window,
@@ -158,6 +178,6 @@ def stitch_packed(frame: torch.Tensor, crop_img: torch.Tensor, window: Window,
         torch.stack([window.y_start, window.x_start], dim=-1),
         antialias=False,
     ).to(torch.float32)
-    inside = _inside_window(window, h, w, frame.device)
+    inside = inside_window(window, h, w, frame.device)
     write = (inside & (canvas[..., 3] > 0.5))[..., None]
     return torch.where(write, canvas[..., :3], frame)

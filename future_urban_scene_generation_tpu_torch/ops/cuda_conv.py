@@ -1,15 +1,23 @@
-"""Kernel K2: the ICN stem convolution over a channel concat assembled in-kernel.
+"""The port's small-input-channel convolution kernels.
 
-Counterpart of the JAX package's ops/pallas_conv.py ``icn_stem_conv_fused`` (:190,
+Kernel K2, the ICN stem convolution over a channel concat assembled in-kernel:
+counterpart of the JAX package's ops/pallas_conv.py ``icn_stem_conv_fused`` (:190,
 kernel ``_conv_kernel_v2_fused`` :148): reflect-pad by ``pad``, then a k x k
 stride-1 convolution over [sketch (3) | central (3), read at n // s_repeat |
 planes (3 * P)], float32 accumulation, no bias. The CUDA kernel lives in
-``csrc/stem_conv.cu``.
+``csrc/stem_conv.cu``. :func:`icn_stem_conv` is the wrapper the scene calls.
 
-:func:`icn_stem_conv` is the wrapper the scene calls: a CPU tensor takes the plain
-version :func:`icn_stem_conv_plain` (reflect-pad, concat, repeat and ``F.conv2d``
-in float32); a CUDA tensor launches the kernel, or raises if the kernel cannot take
-the shapes.
+Kernel K3, the stride-1 VALID convolution of a pre-padded NHWC input with an HWIO
+kernel (JAX ``conv_small_cin_v2`` :102, kernel ``_conv_kernel_v2`` :64), with K4's
+entry on the same kernel (JAX ``conv_small_cin`` :276, kernel ``_conv_kernel`` :35,
+an older TPU layout of the same function). The CUDA kernel lives in
+``csrc/conv_small_cin.cu``; ``models.layers`` dispatches gated convs to
+:func:`conv_small_cin_v2`.
+
+Every wrapper takes its plain version for a CPU tensor; a CUDA tensor launches the
+kernel, or raises if the kernel cannot take the shapes. Each wrapper counts its
+launches: ``LAUNCHES`` (K2), ``SMALL_CIN_V2_LAUNCHES`` (K3) and
+``SMALL_CIN_LAUNCHES`` (K4).
 """
 from __future__ import annotations
 
@@ -21,6 +29,8 @@ import torch.nn.functional as F
 from future_urban_scene_generation_tpu_torch.ops import _kernels
 
 LAUNCHES = 0
+SMALL_CIN_V2_LAUNCHES = 0
+SMALL_CIN_LAUNCHES = 0
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 _COUTS = (8, 16, 64)  # output widths the kernel is instantiated for
 _TILE = 16
@@ -98,4 +108,79 @@ def icn_stem_conv(sketch, central, planes, kernel, pad: int = 3,
     if rc != 0:
         raise RuntimeError(f"fusg_stem_conv launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    return out
+
+
+def conv_small_cin_plain(x, kernel) -> torch.Tensor:
+    """Plain version of K3 and K4: x (N, Hp, Wp, C) pre-padded, kernel (k, k, C, O)
+    HWIO -> (N, Hp - k + 1, Wp - k + 1, O) in x's dtype, computed by ``F.conv2d`` in
+    float32 (float64 for float64 inputs)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    out = F.conv2d(x.to(acc).permute(0, 3, 1, 2), kernel.to(acc).permute(3, 2, 0, 1))
+    return out.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def _check_small_cin(x, kernel):
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"conv_small_cin: unsupported dtype {x.dtype}")
+    if kernel.dtype != x.dtype or kernel.device != x.device:
+        raise TypeError("conv_small_cin: kernel must match x's dtype/device")
+    if x.dim() != 4 or kernel.dim() != 4:
+        raise ValueError("conv_small_cin: x must be (N, Hp, Wp, C), kernel (k, k, C, O)")
+    n, hp, wp, cin = x.shape
+    k, cout = kernel.shape[0], kernel.shape[-1]
+    if tuple(kernel.shape[:3]) != (k, k, cin) or cout < 1:
+        raise ValueError(f"conv_small_cin: kernel {tuple(kernel.shape)} != ({k}, {k}, {cin}, O)")
+    if hp < k or wp < k:
+        raise ValueError(f"conv_small_cin: input {hp}x{wp} is smaller than the {k}x{k} kernel")
+    otile = 64 if cout >= 64 else 16  # csrc/conv_small_cin.cu dispatch_tile
+    if n * -(-cout // otile) > 65535:
+        raise ValueError("conv_small_cin: N x output-channel tiles exceeds the grid limit")
+    pw = _TILE + k - 1
+    smem = (((pw * pw * cin) + 3) // 4 * 4 + k * cin * otile) * 4
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"conv_small_cin: {smem} B of shared memory exceeds the limit")
+
+
+def _launch_small_cin(x, kernel) -> torch.Tensor:
+    _check_small_cin(x, kernel)
+    n, hp, wp, cin = x.shape
+    k, cout = kernel.shape[0], kernel.shape[-1]
+    x, kernel = x.contiguous(), kernel.contiguous()
+    out = torch.empty((n, hp - k + 1, wp - k + 1, cout), dtype=x.dtype, device=x.device)
+    rc = _kernels.load().fusg_conv_small_cin(
+        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(kernel.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()), 0 if x.dtype == torch.float32 else 1,
+        n, hp, wp, cin, k, cout,
+        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+    )
+    if rc != 0:
+        raise RuntimeError(f"fusg_conv_small_cin launch failed: CUDA error {rc}")
+    return out
+
+
+def conv_small_cin_v2(x, kernel) -> torch.Tensor:
+    """K3: stride-1 VALID conv of a pre-padded NHWC ``x`` with an HWIO ``kernel``
+    (see :func:`conv_small_cin_plain`). CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    global SMALL_CIN_V2_LAUNCHES
+    if x.device.type == "cpu":
+        return conv_small_cin_plain(x, kernel)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv_small_cin_v2: unsupported device {x.device}")
+    out = _launch_small_cin(x, kernel)
+    SMALL_CIN_V2_LAUNCHES += 1
+    return out
+
+
+def conv_small_cin(x, kernel) -> torch.Tensor:
+    """K4's entry: the same function as :func:`conv_small_cin_v2` on the same kernel
+    (the JAX package's older TPU layout of it), counted on its own."""
+    global SMALL_CIN_LAUNCHES
+    if x.device.type == "cpu":
+        return conv_small_cin_plain(x, kernel)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv_small_cin: unsupported device {x.device}")
+    out = _launch_small_cin(x, kernel)
+    SMALL_CIN_LAUNCHES += 1
     return out

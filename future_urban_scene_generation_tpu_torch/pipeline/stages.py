@@ -410,6 +410,22 @@ def composite_frames(spec: ModelSpec, backgrounds, crops, windows: cr.Window, ma
     return out
 
 
+def _mask_to_frame(mask_crop, window: cr.Window, hw) -> torch.Tensor:
+    """Crop-resolution masks (B, S, S) sampled at frame pixels inside their windows
+    (fields (B,)): a linear resample of the float mask, thresholded at 0.5 (JAX
+    stages._mask_to_frame :771, batched). Returns (B, H, W) bool."""
+    h, w = hw
+    s = mask_crop.shape[1]
+    canvas = cr.scale_and_translate(
+        mask_crop.to(torch.float32)[..., None],
+        (h, w),
+        torch.stack([window.h / s, window.w / s], dim=-1),
+        torch.stack([window.y_start, window.x_start], dim=-1),
+        antialias=False,
+    )[..., 0]
+    return (canvas > 0.5) & cr.inside_window(window, h, w, mask_crop.device)
+
+
 def composite_step(spec: ModelSpec, background, crops, windows: cr.Window, masks):
     """One frame: background (H, W, 3), crops (V, ...), window fields (V,)."""
     return composite_frames(
