@@ -68,7 +68,8 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.model not in PORTED:
         parser.error(f"--model {args.model} is not ported to PyTorch yet (ported: "
-                     f"{', '.join(PORTED)}; the rest is ROADMAP.md queue 1, S9)")
+                     f"{', '.join(PORTED)}; the remaining trainers wait in ROADMAP.md queue 1, "
+                     "S9, the EdgeConnect ones with the inpaint branch, S7)")
     if args.image_size != 256:
         parser.error("--image-size: the ICN pairs are 256x256 sketch crops")
 
@@ -89,7 +90,7 @@ def main(argv=None):
     ckpt_path = args.out / "checkpoint.pt"
 
     trainer = training.ICNTrainer(lr=args.lr)
-    state = trainer.init(generator, device)
+    state = trainer.init(generator, device=device)
     if args.resume and ckpt_path.exists():
         checkpoint.restore(ckpt_path, state)
     for i in range(state.iteration, args.steps):

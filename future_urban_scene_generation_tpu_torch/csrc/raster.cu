@@ -1,7 +1,9 @@
-// Kernel K1: z-buffer rasterization of corner-expanded triangles.
+// Kernels K1 and K1': z-buffer rasterization of corner-expanded triangles.
 //
 // Replaces the TPU kernel future_urban_scene_generation_tpu/ops/pallas_raster.py
-// (_kernel, reached through rasterize_pallas_corners). Same contract: per-triangle
+// (_kernel, reached through rasterize_pallas_corners = K1 and, behind a corner
+// gather of an indexed mesh, through rasterize_pallas = K1'; the wrappers are
+// ops/cuda_raster.rasterize_corners and rasterize_indexed). Same contract: per-triangle
 // affine planes (barycentrics w0..w2, depth, RGB) built by the torch prep
 // (ops/cuda_raster.triangle_planes_corners), a pixel is covered when all three
 // barycentric planes are >= 0, and the strictly-closer depth test keeps the first

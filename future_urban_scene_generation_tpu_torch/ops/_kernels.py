@@ -1,5 +1,12 @@
 """Builds and loads the port's CUDA kernels (``csrc/*.cu``) as one shared library.
 
+Three sources hold the counterparts of all five TPU kernel entries of the JAX
+package: ``raster.cu`` (K1 ``rasterize_corners`` and K1' ``rasterize_indexed``, two
+entries on one kernel), ``stem_conv.cu`` (K2 ``icn_stem_conv``) and
+``conv_small_cin.cu`` (K3 ``conv_small_cin_v2`` and K4 ``conv_small_cin``, two
+entries on one kernel). The wrappers and their launch counters are in
+``ops/cuda_raster.py`` and ``ops/cuda_conv.py``.
+
 The sources are compiled with ``nvcc`` for ``sm_90a``, one process per source in
 parallel, and linked into a plain-C-interface shared library under
 ``future_urban_scene_generation_tpu_torch/_build/`` at first use, named by a hash of

@@ -1,8 +1,10 @@
-"""Kernel K1: z-buffer rasterization of corner-expanded triangles, batched renders.
+"""Kernels K1 and K1': z-buffer rasterization of triangles, batched over renders.
 
-Counterpart of the JAX package's ops/pallas_raster.py (``rasterize_pallas_corners``
-:363, kernel ``_kernel`` :279). The prep (:func:`triangle_planes_corners`, affine
-barycentric/depth/RGB planes per triangle) and the tile binning
+Counterpart of the JAX package's ops/pallas_raster.py: ``rasterize_pallas_corners``
+:363 (K1, corner-expanded triangles) and ``rasterize_pallas`` :342 (K1', an indexed
+mesh whose corners are gathered in front of the same kernel ``_kernel`` :279). The
+prep (:func:`triangle_planes_corners`, affine barycentric/depth/RGB planes per
+triangle) and the tile binning
 (:func:`bin_groups_for_tiles`) stay plain torch on the device, batched over R
 renders, as the JAX package runs them in XLA outside its kernel. The CUDA kernel
 (``csrc/raster.cu``) walks each 16x16 tile's bin list.
@@ -12,6 +14,9 @@ plain version :func:`rasterize_corners_plain` (the chunked argmin raster of the 
 package's render/rasterizer.py:87-180); a CUDA tensor launches the kernel, or
 raises. Depth ties resolve first-in-buffer-order in both (strictly-closer test),
 where the Pallas kernel averaged ties across its 8 partial buffers.
+:func:`rasterize_indexed` is the second entry on the same CUDA kernel, with its own
+launch counter and its plain version :func:`rasterize_indexed_plain`. The kernel
+takes any H, W (ceil tiles, masked edges) and any T.
 """
 from __future__ import annotations
 
@@ -30,7 +35,8 @@ _BBOX_COL = _N_PLANES * 3
 
 _PLAIN_CHUNK = 128  # triangles per step of the plain version
 
-LAUNCHES = 0
+LAUNCHES = 0  # K1: rasterize_corners
+INDEXED_LAUNCHES = 0  # K1': rasterize_indexed
 
 
 def triangle_planes_corners(screen_xyz: torch.Tensor, color_rgb: torch.Tensor,
@@ -223,15 +229,26 @@ def _check(screen_xyz, color_rgb, out_hw, cull):
         raise ValueError(f"rasterize_corners: empty output {out_hw}")
 
 
-def _rasterize_cuda(screen_xyz, color_rgb, out_hw, cull):
-    global LAUNCHES
+def raster_prep(screen_xyz, color_rgb, out_hw, cull=None):
+    """The torch half of K1 on the device: the plane table and the per-tile bin
+    lists for ceil(H / TILE) x ceil(W / TILE) tiles (any H, W). Returns (table,
+    bins, counts), the inputs of :func:`launch_raster`."""
     _check(screen_xyz, color_rgb, out_hw, cull)
     h, w = out_hw
     table = triangle_planes_corners(screen_xyz.to(torch.float32),
                                     color_rgb.to(torch.float32), cull)
+    bins, counts = bin_groups_for_tiles(table, -(-h // TILE), -(-w // TILE))
+    return table, bins, counts
+
+
+def launch_raster(table, bins, counts, out_hw):
+    """Launch the CUDA kernel on a prepared table and bin lists (CUDA tensors of
+    :func:`raster_prep`). Counts no launch: each entry point counts its own."""
+    h, w = out_hw
+    if table.device.type != "cuda":
+        raise ValueError(f"launch_raster: the kernel needs CUDA tensors, got {table.device}")
     r_n, t_pad = table.shape[0], table.shape[1]
     n_i, n_j = -(-h // TILE), -(-w // TILE)
-    bins, counts = bin_groups_for_tiles(table, n_i, n_j)
     img = torch.empty((r_n, h, w, 3), dtype=torch.float32, device=table.device)
     bg = torch.empty((r_n, h, w), dtype=torch.bool, device=table.device)
     lib = _kernels.load()
@@ -243,7 +260,6 @@ def _rasterize_cuda(screen_xyz, color_rgb, out_hw, cull):
     )
     if rc != 0:
         raise RuntimeError(f"fusg_raster launch failed: CUDA error {rc}")
-    LAUNCHES += 1
     return img, bg
 
 
@@ -252,8 +268,59 @@ def rasterize_corners(screen_xyz: torch.Tensor, color_rgb: torch.Tensor, out_hw,
     """Rasterize R renders of corner-expanded triangles (R, 3, 3, T) ->
     (image (R, H, W, 3), background mask (R, H, W)). CPU tensors take the plain
     version; CUDA tensors launch kernel K1."""
+    global LAUNCHES
     if screen_xyz.device.type == "cpu":
         return rasterize_corners_plain(screen_xyz, color_rgb, out_hw, cull)
     if screen_xyz.device.type != "cuda":
         raise ValueError(f"rasterize_corners: unsupported device {screen_xyz.device}")
-    return _rasterize_cuda(screen_xyz, color_rgb, out_hw, cull)
+    out = launch_raster(*raster_prep(screen_xyz, color_rgb, out_hw, cull), out_hw)
+    LAUNCHES += 1
+    return out
+
+
+def gather_corners(verts: torch.Tensor, triangles: torch.Tensor) -> torch.Tensor:
+    """Per-vertex rows (R, Nv, 3) gathered through triangle indices (T, 3) or
+    (R, T, 3) into the corner layout (R, 3 corners, 3 comps, T)."""
+    if verts.dim() != 3 or verts.shape[-1] != 3:
+        raise ValueError(f"rasterize_indexed: vertices {tuple(verts.shape)} are not (R, Nv, 3)")
+    if triangles.dtype not in (torch.int32, torch.int64) or triangles.shape[-1] != 3 \
+            or triangles.dim() not in (2, 3) or triangles.device != verts.device:
+        raise ValueError("rasterize_indexed: triangles must be integer (T, 3) or (R, T, 3) "
+                         "on the vertices' device")
+    r_n = verts.shape[0]
+    tri = triangles.long()
+    if tri.dim() == 2:
+        tri = tri.expand(r_n, *tri.shape)
+    elif tri.shape[0] != r_n:
+        raise ValueError("rasterize_indexed: triangles' batch must match the vertices'")
+    t = tri.shape[1]
+    # (R, T*3, 3) rows in (triangle, corner) order -> (R, corner, comp, T)
+    rows = torch.gather(verts, 1, tri.reshape(r_n, t * 3, 1).expand(r_n, t * 3, 3))
+    return rows.reshape(r_n, t, 3, 3).permute(0, 2, 3, 1).contiguous()
+
+
+def rasterize_indexed_plain(verts_screen, triangles, vert_colors, out_hw):
+    """Plain version of K1': the corner gather in front of
+    :func:`rasterize_corners_plain`."""
+    return rasterize_corners_plain(gather_corners(verts_screen, triangles),
+                                   gather_corners(vert_colors, triangles), out_hw)
+
+
+def rasterize_indexed(verts_screen: torch.Tensor, triangles: torch.Tensor,
+                      vert_colors: torch.Tensor, out_hw):
+    """Kernel K1': rasterize R indexed meshes. verts_screen (R, Nv, 3) of (x_px,
+    y_px, z_cam), triangles (T, 3) or (R, T, 3) integer, vert_colors (R, Nv, 3)
+    -> (image (R, H, W, 3), background mask (R, H, W)). The corners are gathered
+    with torch indexing, as the JAX package gathers them outside its kernel body;
+    CPU tensors then take the plain version, CUDA tensors launch the CUDA kernel
+    of K1 (counted in ``INDEXED_LAUNCHES``)."""
+    global INDEXED_LAUNCHES
+    if verts_screen.device.type == "cpu":
+        return rasterize_indexed_plain(verts_screen, triangles, vert_colors, out_hw)
+    if verts_screen.device.type != "cuda":
+        raise ValueError(f"rasterize_indexed: unsupported device {verts_screen.device}")
+    screen = gather_corners(verts_screen, triangles)
+    colors = gather_corners(vert_colors, triangles)
+    out = launch_raster(*raster_prep(screen, colors, out_hw), out_hw)
+    INDEXED_LAUNCHES += 1
+    return out

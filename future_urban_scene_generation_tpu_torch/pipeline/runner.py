@@ -26,7 +26,7 @@ from future_urban_scene_generation_tpu_torch.pipeline.stages import CadBank, Mod
 from future_urban_scene_generation_tpu_torch.render import visibility as vis
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
 
-# Side of the local grid the plane visibility is rastered on (area ratios are
+# Default side of the local grid the plane visibility is rastered on (area ratios are
 # affine-invariant, so any grid over the keypoint bbox gives the frame's answer).
 VIS_RES = 192
 
@@ -40,7 +40,7 @@ class SceneResult(NamedTuple):
 
 @torch.no_grad()
 def run_scene(models: Models, cad_bank: CadBank, frame, background, bboxes, meter_coords,
-              intrinsic, *, spec: ModelSpec) -> SceneResult:
+              intrinsic, *, spec: ModelSpec, vis_res: int = VIS_RES) -> SceneResult:
     """The full scene: perception, then :func:`synthesize_scene`.
 
     frame / background (H, W, 3) float RGB in [0, 1]; bboxes (V, 4) xyxy;
@@ -49,7 +49,7 @@ def run_scene(models: Models, cad_bank: CadBank, frame, background, bboxes, mete
     with record_function("fusg.perceive"):
         perception = stages.perceive(models, spec, frame, bboxes)
     return synthesize_scene(models, cad_bank, frame, background, perception,
-                            meter_coords, intrinsic, spec=spec)
+                            meter_coords, intrinsic, spec=spec, vis_res=vis_res)
 
 
 class SceneGeometry(NamedTuple):
@@ -67,17 +67,23 @@ class SceneGeometry(NamedTuple):
 @torch.no_grad()
 def synthesize_scene(models: Models, cad_bank: CadBank, frame, background,
                      perception: Perception, meter_coords, intrinsic, *,
-                     spec: ModelSpec) -> SceneResult:
+                     spec: ModelSpec, vis_res: int = VIS_RES) -> SceneResult:
     """Everything after perception (which may be oracle-injected). ``background``
     is (H, W, 3), or (S, H, W, 3) per step."""
-    geom = scene_geometry(cad_bank, frame, perception, meter_coords, intrinsic, spec=spec)
+    # A classifier head wider than the bank (the 10-way head over the service's
+    # single procedural CAD) may name a CAD the bank lacks: take the last one, as
+    # the JAX package's clamping gather does.
+    perception = perception._replace(
+        cad_idx=perception.cad_idx.clamp(max=cad_bank.vertices.shape[0] - 1))
+    geom = scene_geometry(cad_bank, frame, perception, meter_coords, intrinsic, spec=spec,
+                          vis_res=vis_res)
     icn, vun = generate(models, frame, geom, spec=spec)
     return composite(background, geom, icn, vun, perception.cad_idx, spec=spec)
 
 
 @torch.no_grad()
 def scene_geometry(cad_bank: CadBank, frame, perception: Perception, meter_coords,
-                   intrinsic, *, spec: ModelSpec) -> SceneGeometry:
+                   intrinsic, *, spec: ModelSpec, vis_res: int = VIS_RES) -> SceneGeometry:
     """PnP, rollout, the renders (one K1 launch), visibility, plane polygons, the
     per-vehicle source tables and the plane warps."""
     v, s = meter_coords.shape[0], meter_coords.shape[1]
@@ -108,7 +114,7 @@ def scene_geometry(cad_bank: CadBank, frame, perception: Perception, meter_coord
     with record_function("fusg.visibility"):
         kp3d_s = per_step(cad_bank.keypoints3d[cad_idx]) @ z_rot(theta_n) + tr_n[:, None]
         kp2d_s = project_points_extrinsic(kp3d_s, intrinsic, ext_n)
-        visibility = vis.compute_visibility_local(ext_n, kp2d_s, kp3d_s, res=VIS_RES)[:, :5]
+        visibility = vis.compute_visibility_local(ext_n, kp2d_s, kp3d_s, res=vis_res)[:, :5]
         polys = torch.trunc(kp2d_s)[:, torch.as_tensor(vis.TEXTURE_PLANES, device=dev)]
 
     # Per-vehicle source tables: the frame in each vehicle's step-0 sketch window.
@@ -182,10 +188,10 @@ def composite(background, geom: SceneGeometry, icn, vun, cad_idx, *,
     return SceneResult(frames[:s], frames[s:], geom.pnp_error, cad_idx)
 
 
-def build_cad_bank(meshes, keypoints, scale: float = 5.0, device="cpu") -> CadBank:
+def build_cad_bank(meshes, keypoints, scale: float = 5.0, *, device) -> CadBank:
     """Pad (TriangleMesh, (12, 3) keypoints) pairs into a CadBank: vertices x
     ``scale``, backface-cull orientation checked, Morton-sorted triangles, and
-    the static corner expansion the rasterizer consumes."""
+    the static corner expansion the rasterizer consumes, on ``device``."""
     from future_urban_scene_generation_tpu_torch.utils.mesh import (
         compute_vertex_normals,
         orient_for_backface_cull,

@@ -74,10 +74,11 @@ class Models(NamedTuple):
     vunet: Vunet
 
     @staticmethod
-    def build(spec: ModelSpec, generator: torch.Generator = None) -> "Models":
-        """The four networks for ``spec``, in eval mode on the CPU. With a
-        ``generator`` their parameters are drawn from it (layers.seeded_init_);
-        without one they are left uninitialized for a weight load to fill."""
+    def build(spec: ModelSpec, generator: torch.Generator = None, *, device) -> "Models":
+        """The four networks for ``spec``, in eval mode on ``device``. With a
+        ``generator`` their parameters are drawn from it on the host
+        (layers.seeded_init_) and then moved; without one they are left
+        uninitialized for a weight load to fill."""
         models = Models(
             VGG19Classifier(num_classes=spec.num_cads),
             HourglassNet(spec.num_stacks, spec.num_blocks, spec.num_keypoints),
@@ -88,7 +89,7 @@ class Models(NamedTuple):
             m.eval().requires_grad_(False)
             if generator is not None:
                 seeded_init_(m, generator)
-        return models
+        return models.to(device)
 
     def to(self, device) -> "Models":
         return Models(*(m.to(device) for m in self))

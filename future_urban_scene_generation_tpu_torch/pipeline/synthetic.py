@@ -33,7 +33,7 @@ class BenchScene(NamedTuple):
     spec: ModelSpec
 
 
-def make_bench_scene(V: int = 4, hw=(1080, 1920), t_steps: int = 6, device="cpu",
+def make_bench_scene(V: int = 4, hw=(1080, 1920), t_steps: int = 6, *, device,
                      seed: int = 0, spec: ModelSpec = SERVING_SPEC, subdiv: int = 9,
                      with_models: bool = True) -> BenchScene:
     """Build the scene's inputs and random-init models on ``device``
@@ -48,7 +48,7 @@ def make_bench_scene(V: int = 4, hw=(1080, 1920), t_steps: int = 6, device="cpu"
         for i in range(spec.num_cads)
     ]
     cad_bank = runner.build_cad_bank(
-        [m for m, _ in meshes_kps], [kp for _, kp in meshes_kps], scale=5.0
+        [m for m, _ in meshes_kps], [kp for _, kp in meshes_kps], scale=5.0, device=device
     )
 
     rng = np.random.RandomState(seed)
@@ -56,7 +56,7 @@ def make_bench_scene(V: int = 4, hw=(1080, 1920), t_steps: int = 6, device="cpu"
     background = rng.rand(h, w, 3).astype(np.float32)
 
     bboxes = []
-    kp3d0 = cad_bank.keypoints3d[0]
+    kp3d0 = cad_bank.keypoints3d[0].cpu()
     for v in range(V):
         ext = torch.eye(4)
         ext[:3, :3] = x_rot(torch.tensor(-math.pi / 2.4)) @ z_rot(torch.tensor(0.4 + 0.3 * v))
@@ -74,13 +74,13 @@ def make_bench_scene(V: int = 4, hw=(1080, 1920), t_steps: int = 6, device="cpu"
     )
     models = None
     if with_models:
-        models = Models.build(spec, torch.Generator().manual_seed(seed)).to(device)
+        models = Models.build(spec, torch.Generator().manual_seed(seed), device=device)
 
     def dev(a):
         return torch.as_tensor(np.float32(a), device=device)
 
     return BenchScene(
-        models=models, cad_bank=cad_bank.to(device), frame=dev(frame),
+        models=models, cad_bank=cad_bank, frame=dev(frame),
         background=dev(background), bboxes=dev(bboxes), meters=dev(meters),
         intrinsic=dev(k), spec=spec,
     )
@@ -98,7 +98,7 @@ def make_oracle_scene(hw=(240, 320), subdiv: int = 2, with_bad_vehicle: bool = T
     h, w = hw
     k = np.array([[300.0, 0, w / 2], [0, 300.0, h / 2], [0, 0, 1]], dtype=np.float32)
     mesh, kp3d = mu.make_test_car(subdiv=subdiv)
-    bank = runner.build_cad_bank([mesh], [kp3d], scale=5.0)
+    bank = runner.build_cad_bank([mesh], [kp3d], scale=5.0, device="cpu")
     ext = torch.eye(4)
     ext[:3, :3] = x_rot(torch.tensor(-math.pi / 2.4)) @ z_rot(torch.tensor(0.5))
     ext[:3, 3] = torch.tensor([0.0, 2.0, 18.0])
@@ -130,7 +130,7 @@ def make_oracle_scene(hw=(240, 320), subdiv: int = 2, with_bad_vehicle: bool = T
     )
 
 
-def oracle_perception(scene: dict, device="cpu"):
+def oracle_perception(scene: dict, *, device):
     """The port's Perception for :func:`make_oracle_scene` (CAD 0, oracle
     keypoints; crops of the bboxes' windows, zero for a degenerate bbox)."""
     from future_urban_scene_generation_tpu_torch.ops import crop as cr

@@ -92,7 +92,7 @@ class ICNTrainer:
         self.l1_weight = l1_weight
         self.lr = lr
 
-    def init(self, generator: torch.Generator, device="cpu") -> GANTrainState:
+    def init(self, generator: torch.Generator, *, device) -> GANTrainState:
         """Fresh networks, drawn from ``generator`` (layers.seeded_init_), on ``device``."""
         gen = seeded_init_(GResnet(input_nc=self.input_nc), generator).to(device)
         dis = seeded_init_(DNLayersMulti(input_nc=3, ndf=self.ndf), generator).to(device)

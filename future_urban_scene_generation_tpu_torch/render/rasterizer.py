@@ -1,9 +1,11 @@
-"""Normal-coloured sketch rendering of corner-expanded meshes, batched over renders.
+"""Normal-coloured sketch rendering, batched over renders.
 
 Counterpart of the JAX package's render/rasterizer.py (``Camera``,
-``project_vertices``, ``project_corners`` :228, ``render_normal_sketch_corners``
-:248). The raster itself is kernel K1 (ops/cuda_raster.py): every render of a
-scene goes to one launch.
+``project_vertices``, ``rasterize`` :57, ``rasterize_auto`` :183,
+``project_corners`` :228, ``render_normal_sketch_corners`` :248,
+``render_normal_sketch`` :274). The raster itself is a CUDA kernel
+(ops/cuda_raster.py): the corner-expanded entry K1 takes every render of a scene
+in one launch, the indexed-mesh entry K1' serves ``render_normal_sketch``.
 """
 from __future__ import annotations
 
@@ -67,4 +69,32 @@ def render_normal_sketch_corners(corners_xyz, corner_normals_xyz, extrinsic,
     colors = (corner_normals_xyz + 1.0) / 2.0
     screen = project_corners(corners_xyz, extrinsic, camera)
     img, bg = cuda_raster.rasterize_corners(screen, colors, out_hw, cull=cull)
+    return torch.clamp(img, 0.0, 1.0), bg
+
+
+def rasterize(verts_screen, triangles, vert_colors, out_hw):
+    """The plain chunked raster of R indexed meshes, on whatever device the
+    tensors lie: verts_screen / vert_colors (R, Nv, 3), triangles (T, 3) or
+    (R, T, 3) -> (image (R, H, W, 3), background mask (R, H, W))."""
+    return cuda_raster.rasterize_indexed_plain(verts_screen, triangles, vert_colors, out_hw)
+
+
+def rasterize_auto(verts_screen, triangles, vert_colors, out_hw):
+    """The rasterizer of indexed meshes by device: kernel K1' on CUDA tensors, the
+    plain raster on CPU tensors. The JAX function's other gates (output sizes that
+    tile by its 8x128 blocks, a triangle cap for on-chip memory, a switch for
+    sharded programs) do not carry over: the CUDA kernel takes any H, W and T."""
+    return cuda_raster.rasterize_indexed(verts_screen, triangles, vert_colors, out_hw)
+
+
+def render_normal_sketch(vertices, triangles, vertex_normals, extrinsic, camera: Camera,
+                         out_hw):
+    """Normal sketches of R indexed meshes: colours (n + 1) / 2 per vertex, black
+    background. vertices / vertex_normals (R, Nv, 3), triangles (T, 3) or
+    (R, T, 3), extrinsic (R, 4, 4), camera fields (R,). Returns (sketch
+    (R, H, W, 3) in [0, 1], background mask (R, H, W) bool)."""
+    colors = (vertex_normals + 1.0) / 2.0
+    verts_screen = project_vertices(vertices, extrinsic, camera)
+    img, bg = rasterize_auto(verts_screen, triangles, colors, out_hw)
+    # Barycentric interpolation can overshoot by float eps.
     return torch.clamp(img, 0.0, 1.0), bg

@@ -121,7 +121,7 @@ def test_scene_path_stays_on_k2(monkeypatch):
     monkeypatch.setattr(cuda_conv, "conv_small_cin_v2",
                         lambda x, k: calls.append(tuple(x.shape)) or real(x, k))
     gen = torch.Generator().manual_seed(1)
-    models = stages.Models.build(ModelSpec(), gen)
+    models = stages.Models.build(ModelSpec(), gen, device="cpu")
     x = torch.rand(2, 32, 32, 21, generator=gen) * 2 - 1
     with torch.no_grad():
         models.icn(x)

@@ -42,7 +42,7 @@ def test_icn_pairs_match_jax_icn_batch():
                              jnp.asarray(frame), jnp.asarray(K), batch=1,
                              frame_hw=FRAME_HW, vis_res=128)
     mesh, kp = mu.make_test_car(subdiv=1)
-    bank = runner.build_cad_bank([mesh] * 2, [kp] * 2, scale=5.0)
+    bank = runner.build_cad_bank([mesh] * 2, [kp] * 2, scale=5.0, device="cpu")
     with torch.no_grad():
         got = datagen.icn_pairs(bank, torch.as_tensor(frame), torch.as_tensor(K),
                                 _jax_draws(key, 2, 1), vis_res=128)
@@ -60,7 +60,7 @@ def test_icn_pairs_match_jax_icn_batch():
 def test_icn_batch_draws_shapes_and_ranges():
     """The port's own draws: seeded, in the JAX ranges, and distinct per seed."""
     mesh, kp = mu.make_test_car(subdiv=1)
-    bank = runner.build_cad_bank([mesh] * 2, [kp] * 2, scale=5.0)
+    bank = runner.build_cad_bank([mesh] * 2, [kp] * 2, scale=5.0, device="cpu")
     d = datagen.icn_draws(torch.Generator().manual_seed(0), 2, 64)
     assert d.cad_idx.min() >= 0 and d.cad_idx.max() <= 1
     assert (d.dtheta.abs() <= 0.6).all()

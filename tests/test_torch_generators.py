@@ -30,7 +30,7 @@ def models():
     vun_p = vunm.init({"params": key}, jnp.zeros((1, 128, 128, 3)),
                       jnp.zeros((1, 128, 128, 6)), cov=0.0)
     jmodels = jstages.Models(None, None, icn_p, vun_p)
-    ours = stages.Models.build(ModelSpec())
+    ours = stages.Models.build(ModelSpec(), device="cpu")
     np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
     convert.load_jax_params(ours.icn, np_tree(icn_p))
     convert.load_jax_params(ours.vunet, np_tree(vun_p))

@@ -39,7 +39,8 @@ def _t(a):
 def scene():
     """The oracle scene (one well-posed car) and a 3-step rollout of it."""
     sc = synthetic.make_oracle_scene(with_bad_vehicle=False)
-    bank_t = runner.build_cad_bank([sc["mesh"]] * 2, [sc["kp3d"]] * 2, scale=5.0)
+    bank_t = runner.build_cad_bank([sc["mesh"]] * 2, [sc["kp3d"]] * 2, scale=5.0,
+                                    device="cpu")
     bank_j = jrunner.build_cad_bank([sc["mesh"]] * 2, [sc["kp3d"]] * 2, scale=5.0)
     theta, tr = stages.pose_rollout(_t(sc["meters"]))
     return sc, bank_t, bank_j, theta[0], tr[0]

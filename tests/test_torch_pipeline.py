@@ -40,17 +40,19 @@ def oracle():
     vun_p = vunm.init({"params": key}, jnp.zeros((1, 128, 128, 3)),
                       jnp.zeros((1, 128, 128, 6)), cov=0.0)
     np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
-    ours = stages.Models.build(ModelSpec(), torch.Generator().manual_seed(0))
+    ours = stages.Models.build(ModelSpec(), torch.Generator().manual_seed(0), device="cpu")
     convert.load_jax_params(ours.icn, np_tree(icn_p))
     convert.load_jax_params(ours.vunet, np_tree(vun_p))
     return sc, jstages.Models(None, None, icn_p, vun_p), ours
 
 
 def _port_scene(sc, models, spec=ModelSpec()):
-    bank = runner.build_cad_bank([sc["mesh"]] * 2, [sc["kp3d"]] * 2, scale=5.0)
+    bank = runner.build_cad_bank([sc["mesh"]] * 2, [sc["kp3d"]] * 2, scale=5.0,
+                                 device="cpu")
     t = lambda k: torch.as_tensor(sc[k])  # noqa: E731
     return runner.synthesize_scene(models, bank, t("frame"), t("background"),
-                                   synthetic.oracle_perception(sc), t("meters"),
+                                   synthetic.oracle_perception(sc, device="cpu"),
+                                   t("meters"),
                                    t("intrinsic"), spec=spec)
 
 
@@ -99,7 +101,8 @@ def test_fault_barrier_drops_bad_vehicle(oracle):
 @torch.no_grad()
 def test_run_scene_equals_synthesize_of_perceive():
     spec = ModelSpec(warp_plane_res=96)
-    sc = synthetic.make_bench_scene(V=1, hw=(200, 280), t_steps=2, subdiv=2, spec=spec, seed=3)
+    sc = synthetic.make_bench_scene(V=1, hw=(200, 280), t_steps=2, subdiv=2, spec=spec, seed=3,
+                                    device="cpu")
     args = (sc.models, sc.cad_bank, sc.frame, sc.background)
     res = runner.run_scene(*args, sc.bboxes, sc.meters, sc.intrinsic, spec=spec)
     per = stages.perceive(sc.models, spec, sc.frame, sc.bboxes)
@@ -129,11 +132,12 @@ def test_port_runs_with_jax_unimportable():
         "from future_urban_scene_generation_tpu_torch.spec import ModelSpec\n"
         "sc = synthetic.make_oracle_scene(hw=(96, 128), with_bad_vehicle=False)\n"
         "sc['meters'] = sc['meters'][:, :2]\n"
-        "bank = runner.build_cad_bank([sc['mesh']], [sc['kp3d']])\n"
-        "models = stages.Models.build(ModelSpec(), torch.Generator().manual_seed(0))\n"
+        "bank = runner.build_cad_bank([sc['mesh']], [sc['kp3d']], device='cpu')\n"
+        "models = stages.Models.build(ModelSpec(), torch.Generator().manual_seed(0),\n"
+        "    device='cpu')\n"
         "t = lambda k: torch.as_tensor(sc[k])\n"
         "res = runner.synthesize_scene(models, bank, t('frame'), t('background'),\n"
-        "    synthetic.oracle_perception(sc), t('meters'), t('intrinsic'),\n"
+        "    synthetic.oracle_perception(sc, device='cpu'), t('meters'), t('intrinsic'),\n"
         "    spec=ModelSpec(warp_plane_res=96))\n"
         "assert res.frames_icn.shape == (2, 96, 128, 3), res.frames_icn.shape\n"
         "assert bool(torch.isfinite(res.frames_vunet).all())\n"

@@ -124,7 +124,7 @@ def one_step():
               "gen": jax.jit(jax.grad(gen_loss_fn))(jstate.gen_params)}
 
     trainer = training.ICNTrainer(input_nc=21, ndf=NDF, lr=1e-4)
-    state = trainer.init(torch.Generator().manual_seed(0))
+    state = trainer.init(torch.Generator().manual_seed(0), device="cpu")
     convert.load_jax_params(state.gen, _np_tree(jstate.gen_params))
     convert.load_jax_params(state.dis, _np_tree(jstate.dis_params))
     with pytest.MonkeyPatch.context() as mp:
@@ -176,7 +176,7 @@ def test_generator_float32_gradients_match_float64():
     ~5e-3 on this input; the instance-norm-fed biases are rounding noise in both
     and are left out."""
     trainer = training.ICNTrainer()
-    state = trainer.init(torch.Generator().manual_seed(6))
+    state = trainer.init(torch.Generator().manual_seed(6), device="cpu")
     zero = training.instance_norm_fed_biases(state)
     rng = np.random.RandomState(6)
     x = torch.as_tensor(rng.rand(2, HW, HW, 21) * 2 - 1)
@@ -218,7 +218,7 @@ def test_adam_update_matches_optax():
 
 def test_l1_falls_over_five_steps():
     trainer = training.ICNTrainer(input_nc=21, ndf=NDF, lr=1e-3)
-    state = trainer.init(torch.Generator().manual_seed(3))
+    state = trainer.init(torch.Generator().manual_seed(3), device="cpu")
     x, y = (torch.as_tensor(a) for a in _batch(seed=1))
     l1 = [float(trainer.train_step(state, x, y)[1]["l_l1"]) for _ in range(5)]
     assert l1[-1] < l1[0], l1
@@ -226,13 +226,14 @@ def test_l1_falls_over_five_steps():
 
 def test_checkpoint_round_trip_and_serving_load(tmp_path):
     trainer = training.ICNTrainer(input_nc=21, ndf=NDF)
-    state = trainer.init(torch.Generator().manual_seed(4))
+    state = trainer.init(torch.Generator().manual_seed(4), device="cpu")
     x, y = (torch.as_tensor(a) for a in _batch(seed=2))
     for _ in range(2):
         trainer.train_step(state, x, y)
     path = tmp_path / "checkpoint.pt"
     checkpoint.save(path, state)
-    fresh = checkpoint.restore(path, trainer.init(torch.Generator().manual_seed(9)))
+    fresh = checkpoint.restore(path, trainer.init(torch.Generator().manual_seed(9),
+                                                  device="cpu"))
     assert fresh.iteration == 2
     for a, b in ((state.gen, fresh.gen), (state.dis, fresh.dis)):
         for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
@@ -244,7 +245,7 @@ def test_checkpoint_round_trip_and_serving_load(tmp_path):
             for k in sa[i]:
                 assert torch.equal(sa[i][k], sb[i][k]), (i, k)
     # Train -> serve: the trained generator loads strict into the scene's ICN.
-    models = Models.build(ModelSpec())
+    models = Models.build(ModelSpec(), device="cpu")
     models.icn.load_state_dict(torch.load(path, weights_only=True)["gen"], strict=True)
     for k, v in models.icn.state_dict().items():
         assert torch.equal(v, state.gen.state_dict()[k]), k
