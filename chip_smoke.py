@@ -27,6 +27,7 @@ import argparse
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -109,9 +110,48 @@ def phase_build():
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
         f.write(_kernels.BUILD_LOG)
+    # One line per kernel: registers and spills (the full report is in ptxas.txt).
+    name = spill = None
     for line in _kernels.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas: " + line.strip())
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            for tag in ("raster_kernel", "conv_mma_kernel", "conv_wgmma_kernel",
+                        "conv_fma_kernel"):
+                if tag in name:
+                    loader = "Stem" if "StemLoader" in name else "Padded" if "Padded" in name else ""
+                    ints = ",".join(re.findall(r"Li(\d+)E", name.split("EvT_")[0]))
+                    name = f"{tag}<{loader}{ints}>" if loader else tag
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and name:
+            log(f"  ptxas: {name}: {line.split('Used')[1].split(',')[0].strip()}; {spill}")
+            if "conv_" in name and " 0 bytes spill stores, 0 bytes spill loads" not in " " + spill:
+                raise AssertionError(f"{name} spills registers: {spill}")
+            name = spill = None
+    if "(C7519)" in _kernels.BUILD_LOG:
+        raise AssertionError("ptxas injected warpgroup.arrive into a wgmma group (C7519): a "
+                             "product stands behind a branch between its fence and commit")
+    # Which product the bf16 kernels run on: count tensor-core instructions in the SASS.
+    cuobjdump = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    if os.path.isfile(cuobjdump):
+        sass = subprocess.run([cuobjdump, "-sass", str(_kernels.build())], capture_output=True,
+                              text=True, check=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split(":")[1].strip()
+            elif "HMMA." in line or "HGMMA." in line:
+                key = (fn, "wgmma (HGMMA)" if "HGMMA." in line else "mma.sync (HMMA)")
+                counts[key] = counts.get(key, 0) + 1
+        for (fn, kind), n in sorted(counts.items()):
+            log(f"  sass: {kind} x {n} in {fn[:60]}")
+        found = (len({fn for fn, kind in counts if "conv_mma_kernel" in fn and "HMMA" in kind}),
+                 len({fn for fn, kind in counts if "conv_wgmma_kernel" in fn and "HGMMA" in kind}))
+        if found != (4, 2):
+            raise AssertionError(f"{found} of the (4 mma.sync, 2 wgmma) bf16 conv kernels hold "
+                                 "their tensor-core instructions")
+    else:
+        log("  sass: cuobjdump not found, tensor-core instructions not checked")
 
 
 def _raster_compare(name, screen, colors, cull, dense=False):
@@ -313,15 +353,40 @@ def phase_k1(device):
     return [k1, k1i]
 
 
-def _stem_inputs(device, dtype, seed=11):
+def _stem_inputs(device, dtype, seed=11, n=24, s=6, hw=(256, 256)):
     rng = np.random.RandomState(seed)
-    n, s, h = 24, 6, 256
+    h, w = hw
 
     def t(a):
         return torch.as_tensor(a.astype(np.float32), device=device).to(dtype)
 
-    return (t(rng.rand(n, h, h, 3)), t(rng.rand(n // s, h, h, 3)),
-            t(rng.rand(n, 5, h, h, 3)), t(rng.rand(7, 7, 21, 64) - 0.5)), s
+    return (t(rng.rand(n, h, w, 3)), t(rng.rand(n // s, h, w, 3)),
+            t(rng.rand(n, 5, h, w, 3)), t(rng.rand(7, 7, 21, 64) - 0.5)), s
+
+
+# The main-path stem, then s_repeat = 1 and an H, W that is no multiple of the 16x16 tile.
+K2_CASES = (dict(n=24, s=6, hw=(256, 256)), dict(n=5, s=1, hw=(50, 37)),
+            dict(n=6, s=3, hw=(33, 72)))
+
+
+def _poison_shared_memory(fn, tensors, **kwargs):
+    """Runs ``fn`` on NaN-filled tensors of the same shapes, so that every shared-memory
+    slot the next launch stages (patch buffers, channel pads, tails, weight slots)
+    holds NaN bits beforehand: a padded channel, tail or zero weight row that the
+    kernel fails to write would then reach the output as NaN (0 x NaN)."""
+    fn(*(torch.full_like(t, float("nan")) for t in tensors), **kwargs)
+
+
+def _conv_errors(got, ref):
+    """(float32 max abs error and its tolerance, bf16 worst ratio to its bound) of a
+    kernel output against the float64 plain version on the same inputs. float32: the
+    JAX test's atol 3e-5 (tests/test_layers.py:294) for outputs of magnitude ~10,
+    scaled to this output's magnitude. bf16: within one bf16 ulp (2^-7 relative) of the
+    exact result on the same bf16-rounded inputs, plus float32 summation noise."""
+    diff = (got.double() - ref).abs()
+    mag = ref.abs().max().item()
+    bound16 = 2.0 ** -7 * ref.abs() + 1e-4 * mag
+    return diff.max().item(), 3e-5 * max(1.0, mag / 10.0), (diff / bound16).max().item()
 
 
 def phase_k2(device):
@@ -329,35 +394,30 @@ def phase_k2(device):
 
     # The plain version runs in float64 on the same inputs, so the error measured is
     # the kernel's own float32 accumulation (K = 1,029 terms per output).
-    (sk, ce, pl, kern), s = _stem_inputs(device, torch.float32)
-    got = cuda_conv.icn_stem_conv(sk, ce, pl, kern, pad=3, s_repeat=s)
-    ref = cuda_conv.icn_stem_conv_plain(sk.double(), ce.double(), pl.double(), kern.double(),
-                                        pad=3, s_repeat=s)
-    torch.cuda.synchronize()
-    err32 = (got.double() - ref).abs().max().item()
-    mag = ref.abs().max().item()
-    # The JAX test's atol 3e-5 (tests/test_layers.py:294) for outputs of magnitude
-    # ~10, scaled to this output's magnitude.
-    tol32 = 3e-5 * max(1.0, mag / 10.0)
-    log(f"k2[f32]: max abs err {err32:.3e} vs float64 plain (tol {tol32:.3e}, "
-        f"|ref| max {mag:.2f})")
-    if not err32 <= tol32:
-        raise AssertionError("kernel K2 (f32) disagrees with its plain version")
-
-    (sk, ce, pl, kern), s = _stem_inputs(device, torch.bfloat16)
-    got = cuda_conv.icn_stem_conv(sk, ce, pl, kern, pad=3, s_repeat=s)
-    ref = cuda_conv.icn_stem_conv_plain(sk.double(), ce.double(), pl.double(), kern.double(),
-                                        pad=3, s_repeat=s)
-    torch.cuda.synchronize()
-    diff = (got.double() - ref).abs()
-    # bf16 output rounding: within one bf16 ulp (2^-7 relative) of the exact result on
-    # the same bf16-rounded inputs, plus float32 summation noise.
-    bound = 2.0 ** -7 * ref.abs() + 1e-4 * ref.abs().max()
-    err16 = diff.max().item()
-    log(f"k2[bf16]: max abs err {err16:.3e} vs float64 plain on the same bf16 inputs "
-        f"(bound 2^-7 |ref| + 1e-4 max|ref|, worst ratio {(diff / bound).max().item():.3f})")
-    if not bool((diff <= bound).all()):
-        raise AssertionError("kernel K2 (bf16) disagrees with its plain version")
+    err16 = None
+    for case in K2_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            pieces, rep = _stem_inputs(device, dtype, **case)
+            _poison_shared_memory(cuda_conv.icn_stem_conv, pieces, pad=3, s_repeat=rep)
+            got = cuda_conv.icn_stem_conv(*pieces, pad=3, s_repeat=rep)
+            ref = cuda_conv.icn_stem_conv_plain(*(t.double() for t in pieces), pad=3,
+                                                s_repeat=rep)
+            torch.cuda.synchronize()
+            err, tol32, ratio16 = _conv_errors(got, ref)
+            if dtype == torch.float32:
+                ok = err <= tol32
+                log(f"k2[f32 {case}]: max abs err {err:.3e} vs float64 plain (tol {tol32:.3e}), "
+                    f"after a NaN launch -> {'ok' if ok else 'FAIL'}")
+            else:
+                ok = ratio16 <= 1.0 and got.dtype == torch.bfloat16
+                log(f"k2[bf16 {case}]: max abs err {err:.3e} vs float64 plain on the same bf16 "
+                    f"inputs (bound 2^-7 |ref| + 1e-4 max|ref|, worst ratio {ratio16:.3f}), "
+                    f"after a NaN launch -> {'ok' if ok else 'FAIL'}")
+                if case is K2_CASES[0]:
+                    err16 = err
+            if not ok:
+                raise AssertionError(f"kernel K2 ({dtype}) disagrees with its plain version "
+                                     f"at {case}")
 
     import torch.nn.functional as F
 
@@ -388,14 +448,16 @@ def phase_k2(device):
             cuda_ms(lambda: F.conv2d(x_lib, w_lib), iters=20, warmup=3),
         )
         n_out = ker_out.numel()
-        bound, by = bound_ms(nbytes(a, b, c, w, ker_out), 2.0 * n_out * w[..., 0].numel(),
-                             PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+        bound, by = bound_ms(nbytes(a, b, c, w, ker_out), 2.0 * n_out * w[..., 0].numel(), peak)
         times[dtype] += (bound, by)
+        plan = cuda_conv.conv_plan(dtype, 21, 7, 64)
         log(f"k2 time at the main-path shape (N=24, 256^2, 21->64, {dtype}): K2 "
-            f"{times[dtype][0]:.3f} ms; plain version (f32 F.conv2d on the concat it builds) "
-            f"{times[dtype][1]:.3f} ms; library call (F.conv2d in {dtype} on the materialized "
-            f"concat) {times[dtype][2]:.3f} ms, max abs diff to K2 {lib_err:.3e}; bound "
-            f"{bound:.4f} ms by {by}")
+            f"{times[dtype][0]:.3f} ms ({_product(plan)}); plain version (f32 F.conv2d on the "
+            f"concat it builds) {times[dtype][1]:.3f} ms; library call (F.conv2d in {dtype} on "
+            f"the materialized concat) {times[dtype][2]:.3f} ms, max abs diff to K2 "
+            f"{lib_err:.3e}; bound {bound:.4f} ms by {by}"
+            + _padded_bound(plan, n_out, 7, peak))
     ms, plain_ms, library_ms, bound, by = times[torch.bfloat16]  # the scene serves in bf16
     return dict(name="icn_stem_conv", route="cuda",
                 source="future_urban_scene_generation_tpu_torch/csrc/stem_conv.cu",
@@ -404,10 +466,33 @@ def phase_k2(device):
                 library_ms=library_ms)
 
 
-# The ICN trainer's stem conv (batch 8, 256^2 reflect-padded by 3, 21 -> 64) and
-# the three cases of tests/test_layers.py:222-224 (O = 12 among them).
+def _product(plan) -> str:
+    """Which main loop of csrc/conv_core.cuh a plan runs, in words."""
+    if plan.route in ("wgmma", "mma"):
+        product = "wgmma m64n64k16" if plan.route == "wgmma" else "mma.sync m16n8k16"
+        return (f"{product} on the tensor cores, weights "
+                + ("resident" if plan.resident else "one kernel row at a time")
+                + f", {plan.smem} B shared memory")
+    return f"float32 FMA on the CUDA cores, {plan.smem} B shared memory"
+
+
+def _padded_bound(plan, n_out, k, peak) -> str:
+    """The bound of the work the tensor-core kernel really multiplies: K = k * kr."""
+    if plan.route == "fma":
+        return ""
+    return (f"; bound of the padded work (K = {k * plan.kr}) "
+            f"{2.0 * n_out * k * plan.kr / peak * 1e3:.4f} ms")
+
+
+# The ICN trainer's stem conv (batch 8, 256^2 reflect-padded by 3, 21 -> 64), the
+# three cases of tests/test_layers.py:222-224 (O = 12 among them), a ragged tile, the
+# largest shape the conv gate admits (k = 9, C = 32; the bf16 weights are staged a
+# kernel row at a time), and output widths that are no multiple of 8 (two channel
+# tiles; an odd O).
 K3_STEM = (8, 262, 262, 21, 7, 64)
-K3_CASES = ((2, 22, 26, 21, 7, 16), (1, 19, 20, 3, 3, 8), (2, 38, 34, 6, 5, 12))
+K3_CASES = ((2, 22, 26, 21, 7, 16), (1, 19, 20, 3, 3, 8), (2, 38, 34, 6, 5, 12),
+            (1, 41, 30, 21, 7, 64), (1, 40, 45, 32, 9, 64), (2, 30, 33, 16, 8, 100),
+            (3, 50, 37, 21, 7, 13))
 
 
 def _small_cin_inputs(shape, device, dtype, seed):
@@ -422,29 +507,37 @@ def phase_k3(device):
     """K3 and K4's entry against the plain version in float64 on the same inputs,
     the gated conv's gradients against F.conv2d's autograd, and K3's time."""
     from future_urban_scene_generation_tpu_torch.models import layers
-    from future_urban_scene_generation_tpu_torch.ops import cuda_conv
+    from future_urban_scene_generation_tpu_torch.ops import _kernels, cuda_conv
+
+    # The launch's shared-memory size as the Python plan states it and as the library
+    # computes it, over every shape checked here.
+    lib = _kernels.load()
+    for shape in (K3_STEM,) + K3_CASES:
+        for code, dtype in enumerate((torch.float32, torch.bfloat16)):
+            want = lib.fusg_conv_smem_bytes(code, *shape[3:])
+            if cuda_conv.conv_plan(dtype, *shape[3:]).smem != want:
+                raise AssertionError(f"conv_plan disagrees with the library at {shape[3:]}")
 
     worst = {}
     for entry in ("conv_small_cin_v2", "conv_small_cin"):
         fn = getattr(cuda_conv, entry)
         for i, shape in enumerate((K3_STEM,) + K3_CASES):
             x, kern = _small_cin_inputs(shape, device, torch.float32, seed=20 + i)
+            _poison_shared_memory(fn, (x, kern))
             got = fn(x, kern)
             ref = cuda_conv.conv_small_cin_plain(x.double(), kern.double())
             torch.cuda.synchronize()
-            err32 = (got.double() - ref).abs().max().item()
-            mag = ref.abs().max().item()
-            tol32 = 3e-5 * max(1.0, mag / 10.0)  # as phase_k2
+            err32, tol32, _ = _conv_errors(got, ref)
             x, kern = x.bfloat16(), kern.bfloat16()
+            _poison_shared_memory(fn, (x, kern))
             got = fn(x, kern)
             ref = cuda_conv.conv_small_cin_plain(x.double(), kern.double())
             torch.cuda.synchronize()
-            diff = (got.double() - ref).abs()
-            bound = 2.0 ** -7 * ref.abs() + 1e-4 * ref.abs().max()
-            ok = err32 <= tol32 and bool((diff <= bound).all()) and got.dtype == torch.bfloat16
+            err16, _, ratio16 = _conv_errors(got, ref)
+            ok = err32 <= tol32 and ratio16 <= 1.0 and got.dtype == torch.bfloat16
             log(f"k3[{entry} {shape}]: f32 max abs err {err32:.3e} (tol {tol32:.3e}); bf16 max "
-                f"abs err {diff.max().item():.3e}, worst ratio to its bound "
-                f"{(diff / bound).max().item():.3f} -> {'ok' if ok else 'FAIL'}")
+                f"abs err {err16:.3e}, worst ratio to its bound {ratio16:.3f}; each after a "
+                f"NaN launch -> {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"{entry} disagrees with its plain version at {shape}")
             worst[entry] = max(worst.get(entry, 0.0), err32)
@@ -478,12 +571,15 @@ def phase_k3(device):
             cuda_conv.conv_small_cin_plain)]
         times[dtype].append(cuda_ms(lambda: F.conv2d(x_lib, w_lib), iters=20, warmup=3))
         out = cuda_conv.conv_small_cin_v2(x, kern)
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
         times[dtype] += bound_ms(nbytes(x, kern, out), 2.0 * out.numel() * kern[..., 0].numel(),
-                                 PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+                                 peak)
         t = times[dtype]
+        plan = cuda_conv.conv_plan(dtype, *K3_STEM[3:])
         log(f"k3 time at the training stem {K3_STEM} ({dtype}): K3 {t[0]:.3f} ms, "
-            f"K4 entry {t[1]:.3f} ms; plain version (F.conv2d in f32) {t[2]:.3f} ms; library "
-            f"call (F.conv2d in {dtype}) {t[3]:.3f} ms; bound {t[4]:.4f} ms by {t[5]}")
+            f"K4 entry {t[1]:.3f} ms ({_product(plan)}); plain version (F.conv2d in f32) "
+            f"{t[2]:.3f} ms; library call (F.conv2d in {dtype}) {t[3]:.3f} ms; bound "
+            f"{t[4]:.4f} ms by {t[5]}" + _padded_bound(plan, out.numel(), K3_STEM[4], peak))
     # The kernels line carries the float32 case: the trainer's CLI trains in float32.
     ms3, ms4, plain_ms, library_ms, bound, by = times[torch.float32]
     src = "future_urban_scene_generation_tpu_torch/csrc/conv_small_cin.cu"
@@ -850,6 +946,14 @@ def _profile_scene(sc, run, scene_ms):
         "per scope host ms / kernel ms: "
         + ", ".join(f"{e.key} {e.cpu_time_total / 1e3:.2f}/{e.device_time_total / 1e3:.2f}"
                     for e in scopes))
+    # The port's own kernels are launched through ctypes, outside any aten operator:
+    # their device rows carry the kernels' names.
+    tags = ("conv_wgmma_kernel", "conv_mma_kernel", "conv_fma_kernel", "raster_kernel")
+    own = [(tag, e) for e in rows for tag in tags
+           if e.device_type == DeviceType.CUDA and tag in e.key]
+    log("profile: the port's kernels in that scene (device ms x launches): " + (", ".join(
+        f"{tag} {e.self_device_time_total / 1e3:.3f} x {e.count}" for tag, e in own)
+        or "none traced"))
     log("profile: table written to chiprun_out/profile.txt")
 
 

@@ -24,7 +24,8 @@ int fusg_raster(const float* table, const int* bins, const int* counts,
 // [sketch(3) | central(3) read at n / s_repeat | planes(3 * n_planes)], NHWC.
 //   dtype 0 = float32, 1 = bfloat16 (inputs, weights and output); f32 accumulation.
 //   sketch (n, h, w, 3), central (n / s_repeat, h, w, 3), planes (n, n_planes, h, w, 3)
-//   wmat (k, k, cin, cout) HWIO, out (n, h_out, w_out, cout)
+//   wmat (k, k, cin, cout) HWIO, out (n, h_out, w_out, cout); any cout.
+// The main loops (bf16: tensor cores, float32: CUDA cores) are in conv_core.cuh.
 int fusg_stem_conv(const void* sketch, const void* central, const void* planes,
                    const void* wmat, void* out, int dtype, int n, int h, int w,
                    int n_planes, int k, int pad, int cout, int s_repeat,
@@ -36,6 +37,10 @@ int fusg_stem_conv(const void* sketch, const void* central, const void* planes,
 //   x (n, hp, wp, cin), wmat (k, k, cin, cout) HWIO, out (n, hp-k+1, wp-k+1, cout)
 int fusg_conv_small_cin(const void* x, const void* wmat, void* out, int dtype, int n,
                         int hp, int wp, int cin, int k, int cout, cudaStream_t stream);
+
+// Bytes of dynamic shared memory a K2 / K3 launch asks for at (dtype, cin, k, cout):
+// what ops/cuda_conv.py conv_plan mirrors on the Python side.
+int fusg_conv_smem_bytes(int dtype, int cin, int k, int cout);
 
 #ifdef __cplusplus
 }

@@ -4,7 +4,8 @@ Three sources hold the counterparts of all five TPU kernel entries of the JAX
 package: ``raster.cu`` (K1 ``rasterize_corners`` and K1' ``rasterize_indexed``, two
 entries on one kernel), ``stem_conv.cu`` (K2 ``icn_stem_conv``) and
 ``conv_small_cin.cu`` (K3 ``conv_small_cin_v2`` and K4 ``conv_small_cin``, two
-entries on one kernel). The wrappers and their launch counters are in
+entries on one kernel); the two conv sources are loaders around the shared main
+loops of ``conv_core.cuh``. The wrappers and their launch counters are in
 ``ops/cuda_raster.py`` and ``ops/cuda_conv.py``.
 
 The sources are compiled with ``nvcc`` for ``sm_90a``, one process per source in
@@ -28,7 +29,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("raster.cu", "stem_conv.cu", "conv_small_cin.cu")
-HEADERS = ("fusg_kernels.h",)
+HEADERS = ("fusg_kernels.h", "conv_core.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -110,5 +111,7 @@ def load():
     lib.fusg_stem_conv.restype = i
     lib.fusg_conv_small_cin.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.fusg_conv_small_cin.restype = i
+    lib.fusg_conv_smem_bytes.argtypes = [i, i, i, i]
+    lib.fusg_conv_smem_bytes.restype = i
     _LIB = lib
     return lib

@@ -147,8 +147,15 @@ def test_kernel_shape_checks():
         cuda_conv._check_small_cin(z(1, 9, 9, 3), z(3, 3, 4, 8))  # C mismatch
     with pytest.raises(ValueError):
         cuda_conv._check_small_cin(z(1, 5, 9, 3), z(7, 7, 3, 8))  # input < kernel
+    big = (z(1, 20, 20, 32).bfloat16(), z(9, 9, 32, 100).bfloat16())
+    cuda_conv._check_small_cin(*big)  # bf16: its weights staged a kernel row at a time
     with pytest.raises(ValueError):
-        cuda_conv._check_small_cin(z(1, 40, 40, 64), z(15, 15, 64, 64))  # shared memory
+        cuda_conv._check_small_cin(z(1, 40, 40, 64), z(15, 15, 64, 64))  # shared memory, f32
+    with pytest.raises(ValueError):
+        cuda_conv._check_small_cin(z(1, 40, 40, 64).bfloat16(),
+                                   z(15, 15, 64, 64).bfloat16())  # shared memory, bf16
+    with pytest.raises(ValueError):
+        cuda_conv._check_small_cin(z(70000, 9, 9, 3), z(3, 3, 3, 8))  # float32 grid z
     for fn in (cuda_conv.conv_small_cin_v2, cuda_conv.conv_small_cin):
         with pytest.raises(ValueError):
             fn(z(1, 9, 9, 3, device="meta"), z(3, 3, 3, 8, device="meta"))

@@ -58,8 +58,13 @@ def test_kernel_shape_checks():
     z = torch.zeros
     good = (z(2, 8, 8, 3), z(1, 8, 8, 3), z(2, 5, 8, 8, 3), z(7, 7, 21, 64))
     cuda_conv._check(*good, pad=3, s_repeat=2)
-    with pytest.raises(ValueError):
-        cuda_conv._check(*good[:3], z(7, 7, 21, 32), pad=3, s_repeat=2)  # O = 32
+    cuda_conv._check(*good[:3], z(7, 7, 21, 32), pad=3, s_repeat=2)  # any O since the shared core
+    cuda_conv._check(*(t.bfloat16() for t in good), pad=3, s_repeat=2)
+    wide = (z(2, 40, 40, 3), z(1, 40, 40, 3), z(2, 19, 40, 40, 3), z(15, 15, 63, 64))
+    with pytest.raises(ValueError):  # 15 x 15 x 63: the float32 patch exceeds 232,448 B
+        cuda_conv._check(*wide, pad=7, s_repeat=2)
+    with pytest.raises(ValueError):  # ... and so do the bf16 patches beside one weight row
+        cuda_conv._check(*(t.bfloat16() for t in wide), pad=7, s_repeat=2)
     with pytest.raises(ValueError):
         cuda_conv._check(*good, pad=3, s_repeat=1)  # central batch mismatch
     with pytest.raises(ValueError):
