@@ -11,12 +11,18 @@ synthetic demo (360x640), ``cli.run_test`` on a CityFlow-shaped directory it wri
     python3 chip_smoke.py --phases k3,train  # a subset (device and build always run)
     python3 chip_smoke.py --profile          # also write a torch.profiler table of one scene
 
+The k1 phase holds K1 and K1' (two CUDA launches a call: triangle setup, tiles) at
+every shape against their plain versions after a launch on all-NaN inputs: the setup
+kernel's table bit for bit, the tile kernel's per-tile counts, images and masks; a
+profiled call must show those two kernels on the device and nothing else.
+
 Kernel launches in the ``kernels`` line, each counted over its own path with the
 counters set to 0 just before: K1 and K2 from the main phase's scenes, K3 from the
 train phase's CLI run, K1' from the demo; K4's entry has no caller on any path.
 ``bound_ms`` is the larger of bytes over 3.35 TB/s and operations over the card's
 peak for the kernel's type (the H100 SXM's published 67 TFLOP/s float32, 989 TFLOP/s
-bf16), from this run's inputs; ``library_ms`` is one PyTorch call computing the same
+bf16), from this run's inputs (the raster's operations are counted from the bboxes of
+the triangles it is given, by brute force); ``library_ms`` is one PyTorch call computing the same
 function, timed here and used nowhere in the port.
 
 Any failure raises and exits non-zero. The last line of standard output is
@@ -115,17 +121,21 @@ def phase_build():
     for line in _kernels.BUILD_LOG.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            for tag in ("raster_kernel", "conv_mma_kernel", "conv_wgmma_kernel",
-                        "conv_fma_kernel"):
+            for tag in ("raster_setup_kernel", "raster_tiles_kernel", "conv_mma_kernel",
+                        "conv_wgmma_kernel", "conv_fma_kernel"):
                 if tag in name:
-                    loader = "Stem" if "StemLoader" in name else "Padded" if "Padded" in name else ""
+                    loader = next((label for key, label in (
+                        ("StemLoader", "Stem"), ("Padded", "Padded"), ("CornerLoader", "Corner"),
+                        ("IndexedLoaderIi", "Indexed int32 "),
+                        ("IndexedLoaderIx", "Indexed int64 "),
+                    ) if key in name), "")
                     ints = ",".join(re.findall(r"Li(\d+)E", name.split("EvT_")[0]))
                     name = f"{tag}<{loader}{ints}>" if loader else tag
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line and name:
             log(f"  ptxas: {name}: {line.split('Used')[1].split(',')[0].strip()}; {spill}")
-            if "conv_" in name and " 0 bytes spill stores, 0 bytes spill loads" not in " " + spill:
+            if " 0 bytes spill stores, 0 bytes spill loads" not in " " + spill:
                 raise AssertionError(f"{name} spills registers: {spill}")
             name = spill = None
     if "(C7519)" in _kernels.BUILD_LOG:
@@ -152,16 +162,6 @@ def phase_build():
                                  "their tensor-core instructions")
     else:
         log("  sass: cuobjdump not found, tensor-core instructions not checked")
-
-
-def _raster_compare(name, screen, colors, cull, dense=False):
-    from future_urban_scene_generation_tpu_torch.ops import cuda_raster
-
-    img_k, bg_k = cuda_raster.rasterize_corners(screen, colors, (256, 256), cull=cull)
-    img_p, bg_p = cuda_raster.rasterize_corners_plain(screen, colors, (256, 256), cull=cull)
-    torch.cuda.synchronize()
-    return _raster_budget(name, (img_k, bg_k), (img_p, bg_p), screen.shape[0],
-                          screen.shape[-1], dense)
 
 
 def _raster_budget(name, kernel_out, plain_out, n_renders, n_tris, dense=False):
@@ -254,98 +254,316 @@ def _single_mesh(subdiv, device):
     return torch.as_tensor(screen, device=device), torch.as_tensor(colors, device=device)
 
 
-def _raster_ops(counts) -> float:
-    """Operations this run's data needs of the raster kernel: every pixel of a tile
-    evaluates the three barycentric planes (2 multiplies and 2 adds each) of every
-    triangle binned to the tile."""
-    from future_urban_scene_generation_tpu_torch.ops import cuda_raster
+def _raster_ops(screen, colors, cull, hw):
+    """Operations this run's inputs need of the raster, by two reckonings: every
+    pixel of a 16x16 tile evaluates the three barycentric planes (2 multiplies and 2
+    adds each) of every triangle whose own bbox overlaps the tile (what the tile
+    kernel evaluates at most), and, as until now, of all 8 triangles of every group
+    whose bbox overlaps it. Counted by brute force from the inputs' bboxes (the
+    plain prep's table), not from anything the kernels write."""
+    from future_urban_scene_generation_tpu_torch.ops import cuda_raster as cr
 
-    pairs = int(counts.sum().item()) * cuda_raster.GROUP * cuda_raster.TILE ** 2
-    return 12.0 * pairs
+    table = cr.triangle_planes_corners(screen, colors, cull)
+    x0, y0 = cr._tile_origins(-(-hw[0] // cr.TILE), -(-hw[1] // cr.TILE), cr.TILE, table.device)
+    tri_pairs = group_pairs = 0
+    for tb in table:  # one render at a time: (n_tiles, rows) overlaps
+        tri_pairs += int(cr._box_hits_tile(tb[None, None, :, cr._TRI_BBOX_COL:], x0, y0,
+                                           cr.TILE).sum())
+        group_pairs += int(cr._box_hits_tile(
+            tb[None, None, ::cr.GROUP, cr._BBOX_COL:cr._BBOX_COL + 4], x0, y0, cr.TILE).sum())
+    per_pair = 12.0 * cr.TILE ** 2
+    return per_pair * tri_pairs, per_pair * cr.GROUP * group_pairs, tri_pairs, group_pairs
 
 
-def _indexed_case(name, verts_screen, triangles, vert_colors, hw):
-    """K1' at one shape: against the corners entry on the gathered mesh (exact: the
-    same values minus the gather), against its plain version, and timed. An indexed
-    mesh carries no cull flag, so back faces are rastered too, and where a back and
-    a front edge meet on the silhouette the kernel's affine planes and the plain
-    raster's edge functions may cover a pixel differently: the plain comparison
-    takes the dense-mesh budget of the corners case (tests/test_pallas_raster.py
-    :130-151), not its equal-masks one."""
-    from future_urban_scene_generation_tpu_torch.ops import cuda_raster
+def _nan_like(t):
+    return torch.full_like(t, float("nan"))
+
+
+def _check_scratch_and_counts(name, out, screen, colors, cull, hw):
+    """The setup kernel's table and group bboxes against the plain prep, bit for
+    bit, and the tile kernel's per-tile (groups, triangles) counts against
+    ``bin_scan_plain`` on that table."""
+    from future_urban_scene_generation_tpu_torch.ops import cuda_raster as cr
+
+    r_n, n_tris = screen.shape[0], screen.shape[-1]
+    table_p = cr.triangle_planes_corners(screen, colors, cull)
+    table_k, gbbox_k = cr.scratch_views(out.scratch, r_n, n_tris)
+    if not torch.equal(table_k, table_p):
+        bad = table_k != table_p
+        raise AssertionError(
+            f"k1[{name}]: the setup kernel's table differs from the torch prep in "
+            f"{int(bad.sum())} of {bad.numel()} entries (columns "
+            f"{sorted(set(bad.nonzero()[:, 2].tolist()))}), max abs diff "
+            f"{(table_k - table_p)[bad].abs().max().item():.3e}")
+    if not torch.equal(gbbox_k, table_p[:, ::cr.GROUP, cr._BBOX_COL:cr._BBOX_COL + 4]):
+        raise AssertionError(f"k1[{name}]: the compact group bboxes differ from the table's")
+    scan = cr.bin_scan_plain(table_p, -(-hw[0] // cr.TILE), -(-hw[1] // cr.TILE))
+    if not (torch.equal(out.tile_counts[..., 0], scan.group_counts)
+            and torch.equal(out.tile_counts[..., 1], scan.tri_counts)):
+        raise AssertionError(f"k1[{name}]: the tile kernel's per-tile counts differ from "
+                             "bin_scan_plain")
+    return int(scan.group_counts.sum()), int(scan.tri_counts.sum())
+
+
+def _check_plan(r_n, n_tris, hw, indexed=False):
+    """The launch geometry as ``raster_plan`` states it and as the library computes it."""
+    import ctypes
+
+    from future_urban_scene_generation_tpu_torch.ops import _kernels, cuda_raster as cr
+
+    out = (ctypes.c_int * 7)()
+    rc = _kernels.load().fusg_raster_plan(n_tris, hw[0], hw[1], ctypes.addressof(out))
+    plan = cr.raster_plan(r_n, n_tris, *hw, indexed=indexed)
+    want = [plan.t_pad, plan.n_groups, plan.setup_grid[0], plan.tile_grid[0], plan.block,
+            plan.passes, plan.smem]
+    if rc != 0 or list(out) != want:
+        raise AssertionError(f"raster_plan {want} disagrees with the library {list(out)} "
+                             f"(rc {rc}) at T={n_tris}, {hw}")
+    return plan
+
+
+def _only_raster_kernels(name, fn, calls=5):
+    """A profiled run of ``calls`` calls of ``fn``: raises unless the device ran the
+    two kernels of csrc/raster.cu (setup, tiles), at most once a call each, and
+    nothing else: no aten kernel, no copy, no memset. (The tracer may drop a launch
+    of a ~1 us kernel, so fewer than ``calls`` records of a kernel pass.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count) for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ours = {tag: sum(n for key, n in rows if tag in key)
+            for tag in ("raster_setup_kernel", "raster_tiles_kernel")}
+    others = [key for key, _ in rows if not any(tag in key for tag in ours)]
+    log(f"k1[{name}]: device kernels of {calls} profiled calls: {ours}, others {others}")
+    if others or not all(0 < n <= calls for n in ours.values()):
+        raise AssertionError(f"k1[{name}]: a call must run the two kernels of raster.cu and "
+                             f"nothing else on the device, got {rows} in {calls} calls")
+
+
+def _corners_case(name, screen, colors, cull, hw, dense=False, want_background=None):
+    """K1 at one shape, after a launch on all-NaN inputs of the same shapes: table,
+    group bboxes and per-tile counts against the plain versions, the wrapper equal
+    to the checked launch, images and masks against the plain raster."""
+    from future_urban_scene_generation_tpu_torch.ops import cuda_raster as cr
+
+    _check_plan(screen.shape[0], screen.shape[-1], hw)
+    cr.launch_corners(_nan_like(screen), _nan_like(colors), hw, cull)
+    out = cr.launch_corners(screen, colors, hw, cull, tile_counts=True)
+    torch.cuda.synchronize()
+    n_groups, n_tris = _check_scratch_and_counts(name, out, screen, colors, cull, hw)
+    cr.launch_corners(_nan_like(screen), _nan_like(colors), hw, cull)
+    img_w, bg_w = cr.rasterize_corners(screen, colors, hw, cull=cull)
+    plain = cr.rasterize_corners_plain(screen, colors, hw, cull=cull)
+    torch.cuda.synchronize()
+    if not (torch.equal(img_w, out.image) and torch.equal(bg_w, out.background)):
+        raise AssertionError(f"k1[{name}]: the wrapper's output differs between two launches")
+    if want_background is not None and not bool(bg_w[want_background].all()):
+        raise AssertionError(f"k1[{name}]: render {want_background} is not all background")
+    log(f"k1[{name}]: {hw[0]}x{hw[1]}; table and group bboxes equal to the torch prep bit for "
+        f"bit; per-tile counts equal to bin_scan_plain ({n_groups} binned groups, {n_tris} "
+        "triangles kept of them); after a NaN launch")
+    return _raster_budget(name, (img_w, bg_w), plain, screen.shape[0], screen.shape[-1], dense)
+
+
+def _kernel_device_ms(fn, calls=20):
+    """Mean device time of each of the two raster kernels over ``calls`` calls of
+    ``fn``, from the profiler's kernel records: unlike a CUDA-event loop around one
+    small kernel, this does not include the host's pace between launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    out = []
+    for tag in ("raster_setup_kernel", "raster_tiles_kernel"):
+        mine = [e for e in rows if tag in e.key]
+        traced = sum(e.count for e in mine)  # the tracer may drop a launch of a ~1 us kernel
+        if not 0 < traced <= calls:
+            raise AssertionError(f"{tag}: {traced} launches traced in {calls} calls")
+        out.append(sum(e.self_device_time_total for e in mine) / traced / 1e3)
+    return tuple(out)
+
+
+def _raster_times(launch, wrapper, plain):
+    """Times in ms: the wrapper, the setup kernel alone and the tile kernel alone by
+    CUDA events around back-to-back calls (each call allocates its outputs, so the
+    host paces these loops), the plain version, and each kernel's device time from
+    the profiler. ``launch`` takes the launcher's ``phases`` / ``scratch`` keywords."""
+    from future_urban_scene_generation_tpu_torch.ops import cuda_raster as cr
+
+    scratch = launch().scratch
+    return (cuda_ms(wrapper, iters=100, warmup=5),
+            cuda_ms(lambda: launch(phases=cr.PHASE_SETUP, scratch=scratch), iters=100, warmup=5),
+            cuda_ms(lambda: launch(phases=cr.PHASE_TILES, scratch=scratch), iters=100, warmup=5),
+            cuda_ms(plain, iters=3, warmup=1)) + _kernel_device_ms(wrapper)
+
+
+def _corners_times(name, screen, colors, cull, hw):
+    from future_urban_scene_generation_tpu_torch.ops import cuda_raster as cr
+
+    ms, setup_ms, tiles_ms, plain_ms, setup_dev, tiles_dev = _raster_times(
+        lambda **kw: cr.launch_corners(screen, colors, hw, cull, **kw),
+        lambda: cr.rasterize_corners(screen, colors, hw, cull=cull),
+        lambda: cr.rasterize_corners_plain(screen, colors, hw, cull=cull))
+    ops, ops_groups, tri_pairs, group_pairs = _raster_ops(screen, colors, cull, hw)
+    n_bytes = nbytes(screen, colors, cull) + screen.shape[0] * hw[0] * hw[1] * 13
+    bound, by = bound_ms(n_bytes, ops, PEAK_F32)
+    old_bound, old_by = bound_ms(n_bytes, ops_groups, PEAK_F32)
+    log(f"k1 time at {name} ({screen.shape[0]} x {screen.shape[-1]} triangles, {hw[0]}x{hw[1]}): "
+        f"wrapper {ms:.4f} ms; timed apart: setup kernel alone {setup_ms:.4f} ms, tile kernel "
+        f"alone {tiles_ms:.4f} ms (event loops, paced by the host); device time by the "
+        f"profiler: setup {setup_dev:.4f} ms, tiles {tiles_dev:.4f} ms; plain version "
+        f"{plain_ms:.3f} ms; bound {bound:.5f} ms by {by} "
+        f"({n_bytes / 1e6:.2f} MB moved once = {n_bytes / PEAK_BYTES * 1e3:.5f} ms; {tri_pairs} "
+        f"(triangle bbox, tile) overlaps x 256 px x 12 flop = {ops / PEAK_F32 * 1e3:.5f} ms); by "
+        f"the earlier reckoning ({group_pairs} group overlaps x 8 triangles) {old_bound:.5f} ms "
+        f"by {old_by}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+
+
+def _indexed_case(name, verts_screen, triangles, vert_colors, hw, timed=True):
+    """K1' at one shape, after a launch on all-NaN vertices: against the corners
+    entry on the gathered mesh (exact: the same values minus the gather, table
+    included), against its plain version, and timed. An indexed mesh carries no cull
+    flag, so back faces are rastered too, and where a back and a front edge meet on
+    the silhouette the kernel's affine planes and the plain raster's edge functions
+    may cover a pixel differently: the plain comparison takes the dense-mesh budget
+    of the corners case (tests/test_pallas_raster.py:130-151), not its equal-masks
+    one."""
+    from future_urban_scene_generation_tpu_torch.ops import cuda_raster as cr
 
     args = (verts_screen, triangles, vert_colors, hw)
-    got = cuda_raster.rasterize_indexed(*args)
-    plain = cuda_raster.rasterize_indexed_plain(*args)
-    screen = cuda_raster.gather_corners(verts_screen, triangles)
-    colors = cuda_raster.gather_corners(vert_colors, triangles)
-    corners = cuda_raster.rasterize_corners(screen, colors, hw)
+    r_n, n_tris = verts_screen.shape[0], triangles.shape[-2]
+    _check_plan(r_n, n_tris, hw, indexed=True)
+    cr.launch_indexed(_nan_like(verts_screen), triangles, _nan_like(vert_colors), hw)
+    out = cr.launch_indexed(*args, tile_counts=True)
+    screen = cr.gather_corners(verts_screen, triangles)
+    colors = cr.gather_corners(vert_colors, triangles)
     torch.cuda.synchronize()
-    max_err = _raster_budget(f"indexed, {name}", got, plain, screen.shape[0], screen.shape[-1],
-                             dense=True)
-    if not (torch.equal(got[0], corners[0]) and torch.equal(got[1], corners[1])):
+    _check_scratch_and_counts(f"indexed, {name}", out, screen, colors, None, hw)
+    corners = cr.launch_corners(screen, colors, hw)
+    cr.launch_indexed(_nan_like(verts_screen), triangles, _nan_like(vert_colors), hw)
+    got = cr.rasterize_indexed(*args)
+    plain = cr.rasterize_indexed_plain(*args)
+    torch.cuda.synchronize()
+    max_err = _raster_budget(f"indexed, {name}", got, plain, r_n, n_tris, dense=True)
+    if not (torch.equal(got[0], corners.image) and torch.equal(got[1], corners.background)
+            and torch.equal(out.image, got[0]) and torch.equal(out.scratch, corners.scratch)):
         raise AssertionError(f"K1' differs from the corners entry on the gathered mesh ({name})")
-    ms = cuda_ms(lambda: cuda_raster.rasterize_indexed(*args), iters=20, warmup=2)
-    plain_ms = cuda_ms(lambda: cuda_raster.rasterize_indexed_plain(*args), iters=3, warmup=1)
-    gather_ms = cuda_ms(lambda: (cuda_raster.gather_corners(verts_screen, triangles),
-                                 cuda_raster.gather_corners(vert_colors, triangles)),
-                        iters=20, warmup=2)
-    table, bins, counts = cuda_raster.raster_prep(screen, colors, hw)
-    kernel_ms = cuda_ms(lambda: cuda_raster.launch_raster(table, bins, counts, hw),
-                        iters=50, warmup=3)
-    out_bytes = screen.shape[0] * hw[0] * hw[1] * 13  # float32 RGB + the bool mask
-    bound, by = bound_ms(nbytes(verts_screen, triangles, vert_colors) + out_bytes,
-                         _raster_ops(counts), PEAK_F32)
-    log(f"k1[indexed, {name}]: equal to the corners entry; K1' {ms:.3f} ms (gathers "
-        f"{gather_ms:.3f} ms, CUDA launch alone {kernel_ms:.3f} ms); plain version "
-        f"{plain_ms:.3f} ms; bound {bound:.5f} ms by {by}")
+    if not timed:
+        log(f"k1[indexed, {name}]: table, image and mask equal to the corners entry")
+        return None
+    ms, setup_ms, tiles_ms, plain_ms, setup_dev, tiles_dev = _raster_times(
+        lambda **kw: cr.launch_indexed(*args, **kw), lambda: cr.rasterize_indexed(*args),
+        lambda: cr.rasterize_indexed_plain(*args))
+    ops, ops_groups, tri_pairs, group_pairs = _raster_ops(screen, colors, None, hw)
+    n_bytes = nbytes(verts_screen, triangles, vert_colors) + r_n * hw[0] * hw[1] * 13
+    bound, by = bound_ms(n_bytes, ops, PEAK_F32)
+    old_bound, old_by = bound_ms(n_bytes, ops_groups, PEAK_F32)
+    log(f"k1[indexed, {name}]: table, image and mask equal to the corners entry; K1' wrapper "
+        f"{ms:.4f} ms (setup kernel alone {setup_ms:.4f} ms, tile kernel alone {tiles_ms:.4f} "
+        f"ms, event loops paced by the host; device time by the profiler: setup "
+        f"{setup_dev:.4f} ms, tiles {tiles_dev:.4f} ms); plain version {plain_ms:.3f} ms; bound "
+        f"{bound:.5f} ms by {by} ({tri_pairs} triangle overlaps; by the earlier reckoning, "
+        f"{group_pairs} group overlaps x 8: {old_bound:.5f} ms by {old_by})")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
 
 
+def _datagen_renders(device):
+    """The one K1 call of an ICN training batch (batch 8: the src and dst views, 16
+    renders), with the arguments ``datagen.icn_batch`` hands the wrapper."""
+    from future_urban_scene_generation_tpu_torch.cli import train as cli_train
+    from future_urban_scene_generation_tpu_torch.ops import cuda_raster
+    from future_urban_scene_generation_tpu_torch.pipeline import datagen
+
+    generator, bank, frame, intrinsic = cli_train.icn_setup(0, device)
+    seen, real = [], cuda_raster.rasterize_corners
+
+    def spy(screen, colors, out_hw, cull=None):
+        seen.append((screen, colors, cull, tuple(out_hw)))
+        return real(screen, colors, out_hw, cull=cull)
+
+    cuda_raster.rasterize_corners = spy
+    try:
+        with torch.no_grad():
+            datagen.icn_batch(generator, bank, frame, intrinsic, batch=8)
+    finally:
+        cuda_raster.rasterize_corners = real
+    if len(seen) != 1:
+        raise AssertionError(f"datagen: {len(seen)} K1 calls a batch, not one")
+    return seen[0]
+
+
 def phase_k1(device):
+    from future_urban_scene_generation_tpu_torch.examples.demo_synthetic import FRAME_HW
     from future_urban_scene_generation_tpu_torch.ops import cuda_raster
 
+    hw = (256, 256)
     (screen, colors, cull), indexed = _main_path_renders(device)
-    max_err = _raster_compare("main path: 24 culled cars", screen, colors, cull)
-    for subdiv in (16, 29):  # 6,144 and 20,184 triangles
+    max_err = _corners_case("main path: 24 culled cars", screen, colors, cull, hw)
+    for subdiv in (16, 29):  # 6,144 and 20,184 triangles: 3 and 10 binning passes
         s1, c1 = _single_mesh(subdiv, device)
-        _raster_compare(f"dense mesh subdiv={subdiv}", s1, c1, None, dense=True)
+        _corners_case(f"dense mesh subdiv={subdiv}", s1, c1, None, hw, dense=True)
     rng = np.random.RandomState(31)
     verts = rng.rand(400, 3) * [250, 250, 3] + [0, 0, 4]
     tris = rng.randint(0, 400, (2000, 3))
     cols = rng.rand(400, 3)
-    rs = np.stack([verts[tris[:, k]].T for k in range(3)])[None].astype(np.float32)
-    rc = np.stack([cols[tris[:, k]].T for k in range(3)])[None].astype(np.float32)
-    _raster_compare("random soup, no cull", torch.as_tensor(rs, device=device),
-                    torch.as_tensor(rc, device=device), None)
+    rs = torch.as_tensor(np.stack([verts[tris[:, k]].T for k in range(3)])[None].astype(np.float32),
+                         device=device)
+    rc = torch.as_tensor(np.stack([cols[tris[:, k]].T for k in range(3)])[None].astype(np.float32),
+                         device=device)
+    _corners_case("random soup, no cull", rs, rc, None, hw)
+    # H, W no multiples of the tile (5.6 x 10 tiles), T no multiple of the group, T = 1.
+    small = rs * torch.tensor([160 / 250, 90 / 250, 1.0], device=device)[None, None, :, None]
+    _corners_case("random soup, ragged", small, rc, None, (90, 160))
+    _corners_case("T = 13", small[..., 5:18].contiguous(), rc[..., 5:18].contiguous(), None,
+                  (90, 160))
+    _corners_case("T = 1", rs[..., 7:8].contiguous(), rc[..., 7:8].contiguous(), None, hw)
+    # A render that draws nothing beside one that does: every corner of render 1
+    # behind the camera.
+    two = screen[:2].clone()
+    two[1, :, 2] = -1.0
+    _corners_case("an empty render", two, colors[:2], cull[:2], hw, want_background=1)
+    dg_screen, dg_colors, dg_cull, dg_hw = _datagen_renders(device)
+    _corners_case("datagen: 16 renders of a batch of 8", dg_screen, dg_colors, dg_cull, dg_hw)
 
-    hw = (256, 256)
-    ms = cuda_ms(lambda: cuda_raster.rasterize_corners(screen, colors, hw, cull=cull),
-                 iters=20, warmup=2)
-    plain_ms = cuda_ms(
-        lambda: cuda_raster.rasterize_corners_plain(screen, colors, hw, cull=cull),
-        iters=3, warmup=1,
-    )
-    prep_ms = cuda_ms(lambda: cuda_raster.raster_prep(screen, colors, hw, cull),
-                      iters=20, warmup=2)
-    table, bins, counts = cuda_raster.raster_prep(screen, colors, hw, cull)
-    kernel_ms = cuda_ms(lambda: cuda_raster.launch_raster(table, bins, counts, hw),
-                        iters=50, warmup=3)
-    bound, by = bound_ms(nbytes(screen, colors, cull) + screen.shape[0] * hw[0] * hw[1] * 13,
-                         _raster_ops(counts), PEAK_F32)
-    log(f"k1 time at the main-path shape (24 x 1,944 triangles, 256^2): wrapper {ms:.3f} ms; "
-        f"timed apart: torch prep + binning {prep_ms:.3f} ms (paced by the host's launches), "
-        f"the CUDA launch alone {kernel_ms:.3f} ms; plain version {plain_ms:.3f} ms; bound "
-        f"{bound:.5f} ms by {by} ({int(counts.sum().item())} binned groups)")
+    _only_raster_kernels("main path", lambda: cuda_raster.rasterize_corners(screen, colors, hw,
+                                                                            cull=cull))
+    times = _corners_times("the main-path shape", screen, colors, cull, hw)
+    _corners_times("datagen's shape", dg_screen, dg_colors, dg_cull, dg_hw)
+    # What 6,144 tile blocks cost when none draws: one triangle behind the camera a render.
+    nothing = screen[..., :1].clone()
+    nothing[:, :, 2] = -1.0
+    _corners_times("24 renders that draw nothing", nothing, colors[..., :1].contiguous(), cull, hw)
+    for subdiv in (16, 29):
+        s1, c1 = _single_mesh(subdiv, device)
+        _corners_times(f"the dense mesh, subdiv={subdiv}", s1, c1, None, hw)
     src = "future_urban_scene_generation_tpu_torch/csrc/raster.cu"
     k1 = dict(name="raster", route="cuda", source=src,
               replaces="future_urban_scene_generation_tpu/ops/pallas_raster.py:279",
-              max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-              library_ms=None)
+              max_abs_err=max_err, library_ms=None, **times)
 
-    main_case = _indexed_case("main path: 24 cars, 256^2", *indexed, hw)
-    from future_urban_scene_generation_tpu_torch.examples.demo_synthetic import FRAME_HW
-    demo_case = _indexed_case("the demo's car, 360x640", *_demo_render(device), FRAME_HW)
+    _indexed_case("main path: 24 cars, 256^2", *indexed, hw)
+    iv = torch.as_tensor(verts * [160 / 250, 90 / 250, 1.0], dtype=torch.float32, device=device)
+    ic = torch.as_tensor(cols, dtype=torch.float32, device=device)
+    it = torch.as_tensor(tris[5:18], device=device)
+    _indexed_case("T = 13, int32, 90x160", iv[None], it.to(torch.int32), ic[None], (90, 160),
+                  timed=False)
+    _indexed_case("T = 13, per-render int64 lists, 90x160", iv[None].repeat(2, 1, 1),
+                  torch.stack([it, it.flip(0)]), ic[None].repeat(2, 1, 1), (90, 160), timed=False)
+    demo_args = _demo_render(device)
+    demo_case = _indexed_case("the demo's car, 360x640", *demo_args, FRAME_HW)
+    _only_raster_kernels("indexed, the demo's car",
+                         lambda: cuda_raster.rasterize_indexed(*demo_args, FRAME_HW))
     # The kernels line carries K1' at the shape its own path (the demo) gives it.
     k1i = dict(name="rasterize_indexed", route="cuda", source=src,
                replaces="future_urban_scene_generation_tpu/ops/pallas_raster.py:342",
@@ -948,7 +1166,8 @@ def _profile_scene(sc, run, scene_ms):
                     for e in scopes))
     # The port's own kernels are launched through ctypes, outside any aten operator:
     # their device rows carry the kernels' names.
-    tags = ("conv_wgmma_kernel", "conv_mma_kernel", "conv_fma_kernel", "raster_kernel")
+    tags = ("conv_wgmma_kernel", "conv_mma_kernel", "conv_fma_kernel", "raster_setup_kernel",
+            "raster_tiles_kernel")
     own = [(tag, e) for e in rows for tag in tags
            if e.device_type == DeviceType.CUDA and tag in e.key]
     log("profile: the port's kernels in that scene (device ms x launches): " + (", ".join(

@@ -10,15 +10,29 @@
 extern "C" {
 #endif
 
-// K1 (raster.cu): z-buffer raster of R renders from per-triangle plane tables.
-//   table  (R, t_pad, 32) f32   planes w0,w1,w2,z,r,g,b as (A,B,C) at cols 3p..3p+2
-//   bins   (R, n_tiles, n_groups) i32   per-tile ascending group bases
-//   counts (R, n_tiles) i32
+// K1 and K1' (raster.cu): z-buffer raster of R renders in two launches, triangle
+// setup (one thread per triangle) and tiles (one block per render and 16x16 tile,
+// which bins for itself). `phases`: bit 0 launches the setup, bit 1 the tiles.
+//   table  (R, t_pad, 32) f32 scratch: the setup's rows, read by the tiles
+//   gbbox  (R, t_pad / 8, 4) f32 scratch: bbox (x0, x1, y0, y1) per 8-triangle group
 //   img    (R, h, w, 3) f32 out;  bg (R, h, w) u8 out (1 = background)
-int fusg_raster(const float* table, const int* bins, const int* counts,
-                float* img, unsigned char* bg, int n_renders, int t_pad,
-                int n_groups, int h, int w, int n_tiles_y, int n_tiles_x,
-                cudaStream_t stream);
+//   tile_counts (R, n_tiles, 2) i32 out or null: (groups, triangles) binned per tile
+// K1: screen, colors (R, 3 corners, 3 components, T) f32; cull (R,) u8 or null.
+int fusg_raster_corners(const float* screen, const float* colors,
+                        const unsigned char* cull, float* table, float* gbbox,
+                        float* img, unsigned char* bg, int* tile_counts, int n_renders,
+                        int n_tris, int h, int w, int phases, cudaStream_t stream);
+// K1': verts, vert_colors (R, n_verts, 3) f32; tris (T, 3) or, tris_batched,
+// (R, T, 3), int32 or, tris_int64, int64; an index outside [0, n_verts) is clamped.
+int fusg_raster_indexed(const float* verts, const float* vert_colors, const void* tris,
+                        int tris_int64, int tris_batched, int n_verts, float* table,
+                        float* gbbox, float* img, unsigned char* bg, int* tile_counts,
+                        int n_renders, int n_tris, int h, int w, int phases,
+                        cudaStream_t stream);
+// The launch geometry of a raster call, what ops/cuda_raster.py raster_plan mirrors:
+// out[7] = t_pad, n_groups, setup grid x, tile grid x, threads a block, binning
+// passes, bytes of shared memory of the tile kernel. Returns a CUDA error code.
+int fusg_raster_plan(int n_tris, int h, int w, int* out);
 
 // K2 (stem_conv.cu): reflect-pad + k x k stride-1 conv over the channel concat
 // [sketch(3) | central(3) read at n / s_repeat | planes(3 * n_planes)], NHWC.

@@ -2,7 +2,8 @@
 
 Three sources hold the counterparts of all five TPU kernel entries of the JAX
 package: ``raster.cu`` (K1 ``rasterize_corners`` and K1' ``rasterize_indexed``, two
-entries on one kernel), ``stem_conv.cu`` (K2 ``icn_stem_conv``) and
+entries on one pair of kernels, triangle setup and tiles), ``stem_conv.cu`` (K2
+``icn_stem_conv``) and
 ``conv_small_cin.cu`` (K3 ``conv_small_cin_v2`` and K4 ``conv_small_cin``, two
 entries on one kernel); the two conv sources are loaders around the shared main
 loops of ``conv_core.cuh``. The wrappers and their launch counters are in
@@ -105,8 +106,12 @@ def load():
         return _LIB
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fusg_raster.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
-    lib.fusg_raster.restype = i
+    lib.fusg_raster_corners.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.fusg_raster_corners.restype = i
+    lib.fusg_raster_indexed.argtypes = [p, p, p, i, i, i, p, p, p, p, p, i, i, i, i, i, p]
+    lib.fusg_raster_indexed.restype = i
+    lib.fusg_raster_plan.argtypes = [i, i, i, p]
+    lib.fusg_raster_plan.restype = i
     lib.fusg_stem_conv.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.fusg_stem_conv.restype = i
     lib.fusg_conv_small_cin.argtypes = [p, p, p, i, i, i, i, i, i, i, p]

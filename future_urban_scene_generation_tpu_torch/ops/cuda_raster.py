@@ -2,25 +2,34 @@
 
 Counterpart of the JAX package's ops/pallas_raster.py: ``rasterize_pallas_corners``
 :363 (K1, corner-expanded triangles) and ``rasterize_pallas`` :342 (K1', an indexed
-mesh whose corners are gathered in front of the same kernel ``_kernel`` :279). The
-prep (:func:`triangle_planes_corners`, affine barycentric/depth/RGB planes per
-triangle) and the tile binning
-(:func:`bin_groups_for_tiles`) stay plain torch on the device, batched over R
-renders, as the JAX package runs them in XLA outside its kernel. The CUDA kernel
-(``csrc/raster.cu``) walks each 16x16 tile's bin list.
+mesh). There the prep (:119), the tile binning (:235) and the corner gather run in
+XLA around the Pallas kernel (:279). Here the whole function is CUDA C++
+(``csrc/raster.cu``), two launches a call: a setup kernel, one thread per triangle,
+writes the plane table (K1' reads its corners through the vertex indices in the same
+kernel), and a tile kernel, one block per render and 16x16 tile, bins the
+8-triangle groups for itself, rejects triangles by their own bbox and rasterizes.
 
-:func:`rasterize_corners` is the wrapper the scene calls: a CPU tensor takes the
-plain version :func:`rasterize_corners_plain` (the chunked argmin raster of the JAX
-package's render/rasterizer.py:87-180); a CUDA tensor launches the kernel, or
-raises. Depth ties resolve first-in-buffer-order in both (strictly-closer test),
-where the Pallas kernel averaged ties across its 8 partial buffers.
-:func:`rasterize_indexed` is the second entry on the same CUDA kernel, with its own
-launch counter and its plain version :func:`rasterize_indexed_plain`. The kernel
-takes any H, W (ceil tiles, masked edges) and any T.
+:func:`rasterize_corners` and :func:`rasterize_indexed` are the wrappers: a CPU
+tensor takes the plain version (:func:`rasterize_corners_plain`, the chunked argmin
+raster of the JAX package's render/rasterizer.py:87-180, behind
+:func:`gather_corners` for an indexed mesh); a CUDA tensor launches the two kernels,
+or raises. On the CUDA path the wrapper checks its arguments, allocates the scratch
+and the outputs with ``torch.empty`` and makes one call into the library: no torch
+operator computes anything. Depth ties resolve first-in-buffer-order in both
+(strictly-closer test), where the Pallas kernel averaged ties across its 8 partial
+buffers. Each wrapper counts its launches (``LAUNCHES``, ``INDEXED_LAUNCHES``). The
+kernels take any H, W (ceil tiles, masked edges) and any T.
+
+Beside the kernels stand their plain versions, used by the tests and by nothing on
+a CUDA path: :func:`triangle_planes_corners` (the setup kernel's table, equal bit
+for bit), :func:`indexed_loader_plain` (the indexed loader's addressing),
+:func:`bin_groups_for_tiles` (which groups a tile draws) and :func:`bin_scan_plain`
+(the tile kernel's pass-by-pass compaction and triangle-level rejection).
+:func:`raster_plan` is the launch geometry the library uses.
 """
 from __future__ import annotations
 
-import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -29,9 +38,16 @@ from future_urban_scene_generation_tpu_torch.ops import _kernels
 _BIG = 1e30
 TILE = 16  # CUDA tile: 16x16 pixels, one thread per pixel
 GROUP = 8  # triangles per binned group
-TABLE_COLS = 32  # 7 planes x (A, B, C) at col 3p+k, then the group bbox, then pad
+# A table row: 7 planes x (A, B, C) at col 3p+k, the group's bbox at 21..24, zeros,
+# and the triangle's own bbox in the last four columns (one aligned 16-byte vector).
+TABLE_COLS = 32
 _N_PLANES = 7
 _BBOX_COL = _N_PLANES * 3
+_TRI_BBOX_COL = 28
+BLOCK = TILE * TILE  # threads of a block, in both kernels
+PASS_GROUPS = BLOCK  # groups the tile kernel tests per binning pass
+STAGE_GROUPS = 16  # hit groups it consumes per stage (128 candidate triangles)
+PHASE_SETUP, PHASE_TILES = 1, 2  # bits of the library's ``phases`` argument
 
 _PLAIN_CHUNK = 128  # triangles per step of the plain version
 
@@ -48,8 +64,10 @@ def triangle_planes_corners(screen_xyz: torch.Tensor, color_rgb: torch.Tensor,
     >= 0) where set. Returns (R, T_pad, TABLE_COLS) float32 with T padded to a
     GROUP multiple: columns 3p..3p+2 hold plane p = (w0, w1, w2, z, r, g, b) as
     A x + B y + C, then the group screen bbox (x0, x1, y0, y1) replicated over
-    the group's rows. Invalid triangles (behind the camera, degenerate, culled,
-    padding) get a constant -1 w0 plane and empty bboxes.
+    the group's rows, zeros, and the triangle's own bbox in the last four columns.
+    Invalid triangles (behind the camera, degenerate, culled, padding) get a
+    constant -1 w0 plane and empty bboxes. The plain version of the setup kernel
+    of ``csrc/raster.cu``, which repeats these operations in this order.
     """
     (v0x, v0y, v0z), (v1x, v1y, v1z), (v2x, v2y, v2z) = (
         corner.unbind(1) for corner in screen_xyz.unbind(1)
@@ -108,13 +126,28 @@ def triangle_planes_corners(screen_xyz: torch.Tensor, color_rgb: torch.Tensor,
             padv(w2a), padv(w2b), padv(w2c)]
     for pl in (z_pl, r_pl, g_pl, b_pl):
         rows += [padv(x) for x in pl]
-    for i, bv in enumerate((padv(bx0, _BIG), padv(bx1, -_BIG),
-                            padv(by0, _BIG), padv(by1, -_BIG))):
+    tri_bbox = [padv(bx0, _BIG), padv(bx1, -_BIG), padv(by0, _BIG), padv(by1, -_BIG)]
+    for i, bv in enumerate(tri_bbox):
         g = bv.reshape(r_n, t_pad // GROUP, GROUP)
         g = g.amin(-1) if i in (0, 2) else g.amax(-1)
         rows.append(g.repeat_interleave(GROUP, dim=-1))
-    rows += [torch.zeros_like(rows[0])] * (TABLE_COLS - len(rows))
+    rows += [torch.zeros_like(rows[0])] * (_TRI_BBOX_COL - len(rows))
+    rows += tri_bbox
     return torch.stack(rows, dim=-1).contiguous()
+
+
+def _tile_origins(n_i: int, n_j: int, tile: int, device):
+    """First pixel (x0, y0) of every tile, each (1, n_tiles, 1) float32."""
+    t = torch.arange(n_i * n_j, device=device)
+    return (((t % n_j) * tile).to(torch.float32)[None, :, None],
+            ((t // n_j) * tile).to(torch.float32)[None, :, None])
+
+
+def _box_hits_tile(bbox, x0, y0, tile: int):
+    """The binning test: bboxes (..., 4) of (x0, x1, y0, y1) against the pixel
+    centres of the tiles at (x0, y0)."""
+    return ((bbox[..., 1] >= x0) & (bbox[..., 0] <= x0 + (tile - 1))
+            & (bbox[..., 3] >= y0) & (bbox[..., 2] <= y0 + (tile - 1)))
 
 
 def bin_groups_for_tiles(table: torch.Tensor, n_i: int, n_j: int, tile: int = TILE):
@@ -130,13 +163,8 @@ def bin_groups_for_tiles(table: torch.Tensor, n_i: int, n_j: int, tile: int = TI
     gb = table[:, ::GROUP, _BBOX_COL:_BBOX_COL + 4]  # (R, G, 4) x0 x1 y0 y1
     n_groups = gb.shape[1]
     n_tiles = n_i * n_j
-    t = torch.arange(n_tiles, device=table.device)
-    x0 = ((t % n_j) * tile).to(torch.float32)[None, :, None]
-    y0 = ((t // n_j) * tile).to(torch.float32)[None, :, None]
-    ov = (
-        (gb[:, None, :, 1] >= x0) & (gb[:, None, :, 0] <= x0 + (tile - 1))
-        & (gb[:, None, :, 3] >= y0) & (gb[:, None, :, 2] <= y0 + (tile - 1))
-    )  # (R, n_tiles, G)
+    x0, y0 = _tile_origins(n_i, n_j, tile, table.device)
+    ov = _box_hits_tile(gb[:, None], x0, y0, tile)  # (R, n_tiles, G)
     counts = ov.sum(dim=-1).to(torch.int32)
     pos = torch.cumsum(ov.to(torch.int32), dim=-1) - 1
     pos = torch.where(ov, pos, torch.full_like(pos, n_groups)).long()
@@ -145,6 +173,107 @@ def bin_groups_for_tiles(table: torch.Tensor, n_i: int, n_j: int, tile: int = TI
     bins = torch.zeros(r_n, n_tiles, n_groups + 1, dtype=torch.int32, device=table.device)
     bins.scatter_(-1, pos, bases)
     return bins[..., :n_groups].contiguous(), counts.contiguous()
+
+
+def _ballot_slots(hit: torch.Tensor):
+    """The tile kernel's ordered compaction over the threads of a block (last axis,
+    a multiple of 32): a thread's slot is the popcount of its warp's ballot below
+    its lane plus the popcounts of the warps below its own. Returns (slot per
+    thread, number of hits)."""
+    warps = hit.reshape(*hit.shape[:-1], -1, 32).to(torch.int64)
+    below_lane = torch.cumsum(warps, dim=-1) - warps
+    counts = warps.sum(dim=-1)
+    below_warp = torch.cumsum(counts, dim=-1) - counts
+    return (below_warp[..., None] + below_lane).reshape(hit.shape), counts.sum(dim=-1)
+
+
+def _store_hits(dst, at, values, hit, slot):
+    """dst[..., at + slot] = values where hit; ``dst`` keeps one spare last slot
+    that takes the misses."""
+    spare = dst.shape[-1] - 1
+    index = torch.where(hit, at[..., None] + slot, torch.full_like(slot, spare))
+    dst.scatter_(-1, index, values.expand_as(index).to(dst.dtype))
+
+
+class BinScan(NamedTuple):
+    """What every tile of every render draws, in the order it draws it."""
+
+    groups: torch.Tensor  # (R, n_tiles, n_groups) int32 group bases, compacted
+    group_counts: torch.Tensor  # (R, n_tiles) int32
+    tris: torch.Tensor  # (R, n_tiles, t_pad) int32 table rows, compacted
+    tri_counts: torch.Tensor  # (R, n_tiles) int32
+
+
+def bin_scan_plain(table: torch.Tensor, n_i: int, n_j: int, tile: int = TILE) -> BinScan:
+    """The tile kernel's binning (``raster_tiles_kernel`` in ``csrc/raster.cu``),
+    repeated step by step for every (render, tile) block at once. In passes of
+    ``PASS_GROUPS`` groups, thread g tests group bbox g against the tile and the
+    hits are compacted in thread order (:func:`_ballot_slots`); the pass's hits are
+    consumed ``STAGE_GROUPS`` groups at a time, thread i testing the bbox of
+    triangle i % 8 of the stage's group i // 8, compacted the same way. Entries
+    past the counts are zero."""
+    r_n, t_pad = table.shape[:2]
+    n_groups, n_tiles, dev = t_pad // GROUP, n_i * n_j, table.device
+    x0, y0 = _tile_origins(n_i, n_j, tile, dev)
+    group_bbox = table[:, ::GROUP, _BBOX_COL:_BBOX_COL + 4]  # the kernel's compact array
+    tri_bbox = table[:, None, :, _TRI_BBOX_COL:].expand(r_n, n_tiles, t_pad, 4)
+    groups = torch.zeros((r_n, n_tiles, n_groups + 1), dtype=torch.int32, device=dev)
+    tris = torch.zeros((r_n, n_tiles, t_pad + 1), dtype=torch.int32, device=dev)
+    group_counts = torch.zeros((r_n, n_tiles), dtype=torch.int64, device=dev)
+    tri_counts = torch.zeros_like(group_counts)
+    thread = torch.arange(PASS_GROUPS, device=dev)
+    cand_thread = thread[:STAGE_GROUPS * GROUP]
+    for base in range(0, n_groups, PASS_GROUPS):
+        g = base + thread
+        bbox = group_bbox[:, None, g.clamp(max=n_groups - 1)]  # (R, 1, threads, 4)
+        hit = (g < n_groups) & _box_hits_tile(bbox, x0, y0, tile)
+        slot, n_hit = _ballot_slots(hit)
+        s_groups = torch.zeros((r_n, n_tiles, PASS_GROUPS + 1), dtype=torch.int64, device=dev)
+        _store_hits(s_groups, torch.zeros_like(n_hit), g, hit, slot)
+        _store_hits(groups, group_counts, g * GROUP, hit, slot)
+        group_counts += n_hit
+        for start in range(0, int(n_hit.max()), STAGE_GROUPS):
+            n_cand = (n_hit - start).clamp(0, STAGE_GROUPS) * GROUP
+            cand = cand_thread < n_cand[..., None]
+            row = s_groups[..., start + cand_thread // GROUP] * GROUP + cand_thread % GROUP
+            row = torch.where(cand, row, torch.zeros_like(row))
+            bbox = torch.gather(tri_bbox, 2, row[..., None].expand(*row.shape, 4))
+            tri_hit = cand & _box_hits_tile(bbox, x0, y0, tile)
+            tri_slot, n_t = _ballot_slots(tri_hit)
+            _store_hits(tris, tri_counts, row, tri_hit, tri_slot)
+            tri_counts += n_t
+    return BinScan(groups[..., :n_groups].contiguous(), group_counts.to(torch.int32),
+                   tris[..., :t_pad].contiguous(), tri_counts.to(torch.int32))
+
+
+class RasterPlan(NamedTuple):
+    """The launch geometry of one raster call (``geometry`` / ``launch`` in
+    ``csrc/raster.cu``; ``fusg_raster_plan`` is the library's own account)."""
+
+    t_pad: int  # triangles rounded up to a GROUP multiple: rows of the table
+    n_groups: int
+    setup_grid: tuple  # blocks of the setup kernel: (triangle blocks, renders)
+    tile_grid: tuple  # blocks of the tile kernel: (tiles, renders)
+    block: int  # threads a block, both kernels
+    passes: int  # binning passes of a tile block
+    smem: int  # bytes of shared memory of the tile kernel
+    scratch_floats: int  # table (R, t_pad, 32), then group bboxes (R, n_groups, 4)
+    setup_kernel: str  # which loader the setup kernel runs with
+
+
+def raster_plan(r_n: int, n_tris: int, h: int, w: int, indexed: bool = False) -> RasterPlan:
+    """How a call on R renders of T triangles at (h, w) is launched."""
+    n_groups = -(-n_tris // GROUP)
+    t_pad = n_groups * GROUP
+    n_tiles = -(-h // TILE) * -(-w // TILE)
+    stage_tris = STAGE_GROUPS * GROUP
+    # staged rows, the pass's group list, the stage's triangle list, per-warp counts
+    smem = 4 * (stage_tris * TABLE_COLS + PASS_GROUPS + stage_tris + BLOCK // 32)
+    return RasterPlan(
+        t_pad, n_groups, (-(-t_pad // BLOCK), r_n), (n_tiles, r_n), BLOCK,
+        -(-n_groups // PASS_GROUPS), smem, r_n * (t_pad * TABLE_COLS + n_groups * 4),
+        "raster_setup_kernel<IndexedLoader>" if indexed else "raster_setup_kernel<CornerLoader>",
+    )
 
 
 def rasterize_corners_plain(screen_xyz: torch.Tensor, color_rgb: torch.Tensor,
@@ -229,38 +358,65 @@ def _check(screen_xyz, color_rgb, out_hw, cull):
         raise ValueError(f"rasterize_corners: empty output {out_hw}")
 
 
-def raster_prep(screen_xyz, color_rgb, out_hw, cull=None):
-    """The torch half of K1 on the device: the plane table and the per-tile bin
-    lists for ceil(H / TILE) x ceil(W / TILE) tiles (any H, W). Returns (table,
-    bins, counts), the inputs of :func:`launch_raster`."""
-    _check(screen_xyz, color_rgb, out_hw, cull)
-    h, w = out_hw
-    table = triangle_planes_corners(screen_xyz.to(torch.float32),
-                                    color_rgb.to(torch.float32), cull)
-    bins, counts = bin_groups_for_tiles(table, -(-h // TILE), -(-w // TILE))
-    return table, bins, counts
+class RasterOut(NamedTuple):
+    image: torch.Tensor  # (R, H, W, 3) float32
+    background: torch.Tensor  # (R, H, W) bool
+    scratch: torch.Tensor  # flat float32: see :func:`scratch_views`
+    tile_counts: torch.Tensor  # (R, n_tiles, 2) int32 (groups, triangles) or None
 
 
-def launch_raster(table, bins, counts, out_hw):
-    """Launch the CUDA kernel on a prepared table and bin lists (CUDA tensors of
-    :func:`raster_prep`). Counts no launch: each entry point counts its own."""
+def scratch_views(scratch: torch.Tensor, r_n: int, n_tris: int):
+    """(table (R, t_pad, TABLE_COLS), group bboxes (R, n_groups, 4)) of a launch's
+    scratch."""
+    plan = raster_plan(r_n, n_tris, 1, 1)
+    n_table = r_n * plan.t_pad * TABLE_COLS
+    return (scratch[:n_table].view(r_n, plan.t_pad, TABLE_COLS),
+            scratch[n_table:].view(r_n, plan.n_groups, 4))
+
+
+def _launch(entry: str, inputs: tuple, r_n: int, n_tris: int, out_hw, device, phases,
+            scratch, tile_counts) -> RasterOut:
+    """Allocate the scratch and the outputs and make the one library call that
+    launches the setup and tile kernels on the current stream."""
     h, w = out_hw
-    if table.device.type != "cuda":
-        raise ValueError(f"launch_raster: the kernel needs CUDA tensors, got {table.device}")
-    r_n, t_pad = table.shape[0], table.shape[1]
-    n_i, n_j = -(-h // TILE), -(-w // TILE)
-    img = torch.empty((r_n, h, w, 3), dtype=torch.float32, device=table.device)
-    bg = torch.empty((r_n, h, w), dtype=torch.bool, device=table.device)
-    lib = _kernels.load()
-    rc = lib.fusg_raster(
-        ctypes.c_void_p(table.data_ptr()), ctypes.c_void_p(bins.data_ptr()),
-        ctypes.c_void_p(counts.data_ptr()), ctypes.c_void_p(img.data_ptr()),
-        ctypes.c_void_p(bg.data_ptr()), r_n, t_pad, t_pad // GROUP, h, w, n_i, n_j,
-        ctypes.c_void_p(torch.cuda.current_stream(table.device).cuda_stream),
+    plan = raster_plan(r_n, n_tris, h, w)
+    if scratch is None:
+        scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=device)
+    img = torch.empty((r_n, h, w, 3), dtype=torch.float32, device=device)
+    bg = torch.empty((r_n, h, w), dtype=torch.bool, device=device)
+    counts = None
+    if tile_counts:
+        counts = torch.empty((r_n, plan.tile_grid[0], 2), dtype=torch.int32, device=device)
+    table_ptr = scratch.data_ptr()
+    rc = getattr(_kernels.load(), entry)(
+        *inputs, table_ptr, table_ptr + 4 * r_n * plan.t_pad * TABLE_COLS, img.data_ptr(),
+        bg.data_ptr(), None if counts is None else counts.data_ptr(), r_n, n_tris, h, w,
+        phases, torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"fusg_raster launch failed: CUDA error {rc}")
-    return img, bg
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+    return RasterOut(img, bg, scratch, counts)
+
+
+def launch_corners(screen_xyz, color_rgb, out_hw, cull=None, *,
+                   phases: int = PHASE_SETUP | PHASE_TILES, scratch=None,
+                   tile_counts: bool = False) -> RasterOut:
+    """Launch K1's kernels on CUDA tensors. ``phases`` picks the setup kernel, the
+    tile kernel or both; the tile kernel alone reads a ``scratch`` an earlier
+    launch at the same shapes wrote. ``tile_counts`` asks for the tile kernel's
+    per-tile (groups, triangles) counts. Counts no launch: each entry point counts
+    its own."""
+    _check(screen_xyz, color_rgb, out_hw, cull)
+    if screen_xyz.device.type != "cuda":
+        raise ValueError(f"launch_corners: the kernels need CUDA tensors, got "
+                         f"{screen_xyz.device}")
+    screen = screen_xyz.to(torch.float32).contiguous()
+    colors = color_rgb.to(torch.float32).contiguous()
+    flags = None if cull is None else cull.to(torch.bool).contiguous()
+    inputs = (screen.data_ptr(), colors.data_ptr(),
+              None if flags is None else flags.data_ptr())
+    return _launch("fusg_raster_corners", inputs, screen.shape[0], screen.shape[-1], out_hw,
+                   screen.device, phases, scratch, tile_counts)
 
 
 def rasterize_corners(screen_xyz: torch.Tensor, color_rgb: torch.Tensor, out_hw,
@@ -273,30 +429,53 @@ def rasterize_corners(screen_xyz: torch.Tensor, color_rgb: torch.Tensor, out_hw,
         return rasterize_corners_plain(screen_xyz, color_rgb, out_hw, cull)
     if screen_xyz.device.type != "cuda":
         raise ValueError(f"rasterize_corners: unsupported device {screen_xyz.device}")
-    out = launch_raster(*raster_prep(screen_xyz, color_rgb, out_hw, cull), out_hw)
+    out = launch_corners(screen_xyz, color_rgb, out_hw, cull)
     LAUNCHES += 1
-    return out
+    return out.image, out.background
 
 
-def gather_corners(verts: torch.Tensor, triangles: torch.Tensor) -> torch.Tensor:
-    """Per-vertex rows (R, Nv, 3) gathered through triangle indices (T, 3) or
-    (R, T, 3) into the corner layout (R, 3 corners, 3 comps, T)."""
+def _check_indexed(verts: torch.Tensor, triangles: torch.Tensor):
     if verts.dim() != 3 or verts.shape[-1] != 3:
         raise ValueError(f"rasterize_indexed: vertices {tuple(verts.shape)} are not (R, Nv, 3)")
     if triangles.dtype not in (torch.int32, torch.int64) or triangles.shape[-1] != 3 \
             or triangles.dim() not in (2, 3) or triangles.device != verts.device:
         raise ValueError("rasterize_indexed: triangles must be integer (T, 3) or (R, T, 3) "
                          "on the vertices' device")
+    if triangles.dim() == 3 and triangles.shape[0] != verts.shape[0]:
+        raise ValueError("rasterize_indexed: triangles' batch must match the vertices'")
+
+
+def gather_corners(verts: torch.Tensor, triangles: torch.Tensor) -> torch.Tensor:
+    """Per-vertex rows (R, Nv, 3) gathered through triangle indices (T, 3) or
+    (R, T, 3) into the corner layout (R, 3 corners, 3 comps, T)."""
+    _check_indexed(verts, triangles)
     r_n = verts.shape[0]
     tri = triangles.long()
     if tri.dim() == 2:
         tri = tri.expand(r_n, *tri.shape)
-    elif tri.shape[0] != r_n:
-        raise ValueError("rasterize_indexed: triangles' batch must match the vertices'")
     t = tri.shape[1]
     # (R, T*3, 3) rows in (triangle, corner) order -> (R, corner, comp, T)
     rows = torch.gather(verts, 1, tri.reshape(r_n, t * 3, 1).expand(r_n, t * 3, 3))
     return rows.reshape(r_n, t, 3, 3).permute(0, 2, 3, 1).contiguous()
+
+
+def indexed_loader_plain(verts: torch.Tensor, triangles: torch.Tensor) -> torch.Tensor:
+    """The corners as the indexed setup kernel's loader addresses them
+    (``IndexedLoader`` in ``csrc/raster.cu``): corner k of triangle t of render r is
+    the three floats at ``(r * Nv + i) * 3`` of the flat vertex buffer, with
+    ``i = tris[((r if batched else 0) * T + t) * 3 + k]`` clamped to [0, Nv).
+    -> (R, 3 corners, 3 comps, T), the layout of :func:`gather_corners`."""
+    _check_indexed(verts, triangles)
+    r_n, n_verts = verts.shape[:2]
+    batched = triangles.dim() == 3
+    n_tris = triangles.shape[-2]
+    flat_tris, flat_verts = triangles.reshape(-1), verts.reshape(-1)
+    r = torch.arange(r_n, device=verts.device)[:, None, None, None]
+    k = torch.arange(3, device=verts.device)[None, :, None, None]
+    m = torch.arange(3, device=verts.device)[None, None, :, None]
+    t = torch.arange(n_tris, device=verts.device)[None, None, None, :]
+    i = flat_tris[((r if batched else 0) * n_tris + t) * 3 + k].long().clamp(0, n_verts - 1)
+    return flat_verts[(r * n_verts + i) * 3 + m]
 
 
 def rasterize_indexed_plain(verts_screen, triangles, vert_colors, out_hw):
@@ -306,21 +485,41 @@ def rasterize_indexed_plain(verts_screen, triangles, vert_colors, out_hw):
                                    gather_corners(vert_colors, triangles), out_hw)
 
 
+def launch_indexed(verts_screen, triangles, vert_colors, out_hw, *,
+                   phases: int = PHASE_SETUP | PHASE_TILES, scratch=None,
+                   tile_counts: bool = False) -> RasterOut:
+    """Launch K1''s kernels on CUDA tensors: the setup kernel reads each triangle's
+    corners through its vertex indices. Arguments as :func:`launch_corners`."""
+    _check_indexed(verts_screen, triangles)
+    if vert_colors.shape != verts_screen.shape or vert_colors.device != verts_screen.device:
+        raise ValueError("rasterize_indexed: vert_colors must match verts_screen's "
+                         "shape/device")
+    if verts_screen.device.type != "cuda":
+        raise ValueError(f"launch_indexed: the kernels need CUDA tensors, got "
+                         f"{verts_screen.device}")
+    if not (0 < out_hw[0] and 0 < out_hw[1]):
+        raise ValueError(f"rasterize_indexed: empty output {out_hw}")
+    verts = verts_screen.to(torch.float32).contiguous()
+    colors = vert_colors.to(torch.float32).contiguous()
+    tris = triangles.contiguous()
+    inputs = (verts.data_ptr(), colors.data_ptr(), tris.data_ptr(),
+              int(tris.dtype == torch.int64), int(tris.dim() == 3), verts.shape[1])
+    return _launch("fusg_raster_indexed", inputs, verts.shape[0], tris.shape[-2], out_hw,
+                   verts.device, phases, scratch, tile_counts)
+
+
 def rasterize_indexed(verts_screen: torch.Tensor, triangles: torch.Tensor,
                       vert_colors: torch.Tensor, out_hw):
     """Kernel K1': rasterize R indexed meshes. verts_screen (R, Nv, 3) of (x_px,
     y_px, z_cam), triangles (T, 3) or (R, T, 3) integer, vert_colors (R, Nv, 3)
-    -> (image (R, H, W, 3), background mask (R, H, W)). The corners are gathered
-    with torch indexing, as the JAX package gathers them outside its kernel body;
-    CPU tensors then take the plain version, CUDA tensors launch the CUDA kernel
-    of K1 (counted in ``INDEXED_LAUNCHES``)."""
+    -> (image (R, H, W, 3), background mask (R, H, W)). CPU tensors take the plain
+    version (the corners gathered with torch indexing); CUDA tensors launch the
+    CUDA kernels with the indexed loader (counted in ``INDEXED_LAUNCHES``)."""
     global INDEXED_LAUNCHES
     if verts_screen.device.type == "cpu":
         return rasterize_indexed_plain(verts_screen, triangles, vert_colors, out_hw)
     if verts_screen.device.type != "cuda":
         raise ValueError(f"rasterize_indexed: unsupported device {verts_screen.device}")
-    screen = gather_corners(verts_screen, triangles)
-    colors = gather_corners(vert_colors, triangles)
-    out = launch_raster(*raster_prep(screen, colors, out_hw), out_hw)
+    out = launch_indexed(verts_screen, triangles, vert_colors, out_hw)
     INDEXED_LAUNCHES += 1
-    return out
+    return out.image, out.background

@@ -3,9 +3,11 @@
 Counterpart of the JAX package's render/rasterizer.py (``Camera``,
 ``project_vertices``, ``rasterize`` :57, ``rasterize_auto`` :183,
 ``project_corners`` :228, ``render_normal_sketch_corners`` :248,
-``render_normal_sketch`` :274). The raster itself is a CUDA kernel
-(ops/cuda_raster.py): the corner-expanded entry K1 takes every render of a scene
-in one launch, the indexed-mesh entry K1' serves ``render_normal_sketch``.
+``render_normal_sketch`` :274). The raster itself is CUDA (ops/cuda_raster.py,
+two kernels a call: triangle setup, then tiles that bin for themselves): the
+corner-expanded entry K1 takes every render of a scene in one call, the
+indexed-mesh entry K1' serves ``render_normal_sketch`` and reads the corners
+through the vertex indices inside its setup kernel.
 """
 from __future__ import annotations
 
