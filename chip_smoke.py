@@ -5,7 +5,11 @@ scene (1080p, 4 vehicles, 6 steps, 10 CADs of 1,944 triangles) in the bf16 servi
 config, trains the full-width ICN through ``cli.train --model icn`` and the trainer
 API (float32 and bfloat16 inputs), then drives the serving entry points: the
 synthetic demo (360x640), ``cli.run_test`` on a CityFlow-shaped directory it writes
-(720x1280, 4 vehicles) and the stream runners on the same frames.
+(720x1280, 4 vehicles), the stream runners on the same frames, ``MultiStreamRunner``
+over 1, 2 and 4 cameras (threaded and not), ``cli.warmup`` in a fresh process and the
+web GUI's server over one ``SceneService``. The train phase also trains the VUNet,
+the hourglass and the CAD classifier at full width (``cli.train``, timed loops, one
+step on the card against the CPU, the train-mode batch norm's backward).
 
     python3 chip_smoke.py                    # every phase, one GPU
     python3 chip_smoke.py --phases k3,train  # a subset (device and build always run)
@@ -45,7 +49,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-ALL_PHASES = ("k1", "k2", "k3", "gpu_vs_cpu", "main", "train", "demo", "serve", "stream")
+ALL_PHASES = ("k1", "k2", "k3", "gpu_vs_cpu", "main", "train", "demo", "serve", "stream",
+              "multi", "warmup", "web")
 # Published peaks of one H100 SXM: device memory bytes/s, float32 FLOP/s outside the
 # tensor cores, dense bf16 FLOP/s.
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -984,6 +989,182 @@ def _pool_backward_check(device):
         raise AssertionError("the discriminator's avg-pool backward is wrong on the card")
 
 
+# Full-width training configurations of the three single-network families:
+# (cli.train --model, batch, the bar on float32 card-vs-CPU gradients or None).
+TRAIN_FAMILIES = (("vunet", 4, 5e-2), ("hourglass", 4, None), ("cad", 8, 5e-2))
+
+
+def _bn_backward_check(device):
+    """The hourglass's train-mode batch norm (channels_last input: the NHWC tensor's
+    ``permute`` view) differentiated on the card against float64 on the CPU and
+    against the same ``F.batch_norm`` on an NCHW-contiguous copy on the card."""
+    import torch.nn.functional as F
+
+    from future_urban_scene_generation_tpu_torch.models.hourglass import BatchNorm2d
+
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(4, 64, 64, 128, generator=gen, dtype=torch.float64) * 2.0 + 0.5
+    gy = torch.randn(4, 64, 64, 128, generator=gen, dtype=torch.float64)
+    w = torch.rand(128, generator=gen, dtype=torch.float64) + 0.5
+    b = torch.randn(128, generator=gen, dtype=torch.float64)
+    grads = {}
+    for label, dev, dtype in (("cpu64", "cpu", torch.float64), ("card", device, torch.float32),
+                              ("card nchw", device, torch.float32)):
+        bn = BatchNorm2d(128).to(dev, dtype).train()
+        with torch.no_grad():
+            bn.weight.copy_(w)
+            bn.bias.copy_(b)
+        xx = x.to(dev, dtype).requires_grad_()
+        if label == "card nchw":
+            xc = xx.permute(0, 3, 1, 2).contiguous()
+            y = F.batch_norm(xc, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+            y = y.permute(0, 2, 3, 1)
+        else:
+            y = bn(xx)
+        g = torch.autograd.grad(y, (xx, bn.weight, bn.bias), gy.to(dev, dtype))
+        grads[label] = [t.double().cpu() for t in g] + [y.detach().double().cpu()]
+    rel = {}
+    for label in ("card", "card nchw"):
+        rel[label] = max(((a - r).abs().max() / r.abs().max()).item()
+                         for a, r in zip(grads[label], grads["cpu64"]))
+    log(f"train[batch norm backward]: train-mode NHWC batch norm, output and gradients (x, "
+        f"weight, bias), card f32 vs CPU f64, worst max|diff| / max|ref|: channels_last view "
+        f"{rel['card']:.3e}, NCHW copy {rel['card nchw']:.3e} (tol 1e-4)")
+    if not rel["card"] <= 1e-4:
+        raise AssertionError("the batch norm's channels_last backward is wrong on the card")
+
+
+def _family_on_both(model, batch, dtype, device):
+    """One train step of a family from the same seeded weights on the same batch (made
+    on the card, full width, 256^2), on the CPU and on the card, in ``dtype``. The
+    VUNet's noise comes from a CPU generator on both. Returns {device: (loss,
+    {name: gradient or None})} and the names of the biases that feed a batch norm."""
+    from future_urban_scene_generation_tpu_torch.cli import train as cli_train
+
+    trainer, _, make_batch = cli_train.family_setup(model, seed=0, batch=batch, lr=1e-4,
+                                                    image_size=256, device=device)
+    args = make_batch()
+    out, fed = {}, set()
+    for dev in ("cpu", device):
+        state = trainer.init(torch.Generator().manual_seed(5), device=dev)
+        state.module.to(dtype)
+        moved = []
+        for a in args:
+            if isinstance(a, torch.Generator):
+                a = torch.Generator().manual_seed(6)
+            elif a.is_floating_point():
+                a = a.to(dev, dtype)
+            else:
+                a = a.to(dev)
+            moved.append(a)
+        _, metrics = trainer.train_step(state, *moved)
+        named = dict(state.module.named_parameters())
+        out[dev] = (float(metrics["loss"]),
+                    {n: None if p.grad is None else p.grad.double().cpu()
+                     for n, p in named.items()})
+        if model == "hourglass":
+            fed = {n for n in named if n.endswith(".bias") and not n.startswith("score.")
+                   and named[n[: -len("bias")] + "weight"].dim() == 4}
+    return out, fed
+
+
+def _family_gpu_vs_cpu(model, batch, f32_tol, device):
+    """Card against CPU for one family, at the ICN step's bars: float32 loss rtol
+    1e-3 and gradients by relative L2 per tensor (``f32_tol``; None: reported only,
+    where float32 itself is that far from float64 on one device), float64 loss rtol
+    1e-6 and gradients atol 1e-6 * max|g|. Biases that feed a batch norm (zero in
+    exact arithmetic) are held near zero against their conv's weight gradient."""
+    bad = []
+    for dtype, loss_tol, tol, metric in ((torch.float32, 1e-3, f32_tol, 1),
+                                         (torch.float64, 1e-6, 1e-6, 0)):
+        res, fed = _family_on_both(model, batch, dtype, device)
+        (lc, gc), (lg, gg) = res["cpu"], res[device]
+        if not abs(lg - lc) <= loss_tol * abs(lc):
+            bad.append(f"{dtype} loss")
+        worst = [0.0, 0.0]
+        for n, r in gc.items():
+            g = gg[n]
+            if r is None or g is None:
+                if not (r is None and g is None):
+                    bad.append(f"{dtype} {n}: reached on one device only")
+                continue
+            if n in fed:
+                scale = gc[n[: -len("bias")] + "weight"].abs().max()
+                if not max(g.abs().max(), r.abs().max()) <= 1e-4 * scale:
+                    bad.append(f"{dtype} {n}: a batch-norm-fed bias with a gradient")
+                continue
+            d = (((g - r).abs().max() / r.abs().max()).item(), ((g - r).norm() / r.norm()).item())
+            worst = [max(worst[0], d[0]), max(worst[1], d[1])]
+            if tol is not None and not d[metric] <= tol:
+                bad.append(f"{dtype} {n}: {d[metric]:.3e}")
+        log(f"train[{model} gpu_vs_cpu {dtype}]: batch 2, loss cpu {lc:.6f} gpu {lg:.6f} (rtol "
+            f"{loss_tol:g}); gradients, worst max|diff| / max|g| {worst[0]:.3e}, worst relative "
+            f"L2 {worst[1]:.3e} (tol {tol} on {('max|diff| / max|g|', 'relative L2')[metric]})")
+    if bad:
+        raise AssertionError(f"{model} step on the GPU disagrees with the CPU: {bad[:8]}")
+
+
+def _train_family(model, batch, f32_tol, device, card):
+    """One of the VUNet, hourglass and CAD-classifier trainers at full width on the
+    card: ``cli.train`` for 2 steps and a resume to 3, a fixed-batch loop (one
+    warm-up, 5 steps by CUDA events, peak memory), the batch maker's time, and one
+    step card against CPU. Returns K1's launches in the CLI run (datagen)."""
+    from future_urban_scene_generation_tpu_torch.cli import train as cli_train
+    from future_urban_scene_generation_tpu_torch.ops import cuda_raster
+
+    out = os.path.join(OUT_DIR, f"train_{model}")
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ["--model", model, "--batch", str(batch), "--device", device, "--out", out,
+            "--log-interval", "1", "--save-interval", "2"]
+    cuda_raster.LAUNCHES = 0
+    t0 = time.perf_counter()
+    cli_train.main(argv + ["--steps", "2"])
+    cli_train.main(argv + ["--steps", "3", "--resume"])
+    torch.cuda.synchronize()
+    secs, k1 = time.perf_counter() - t0, cuda_raster.LAUNCHES
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    size = os.path.getsize(os.path.join(out, "checkpoint.pt")) / 2 ** 20
+    shutil.rmtree(out)  # the checkpoint (the classifier's: 1.6 GiB) stays on the machine
+    log(f"train[{model} cli]: 2 steps, then --resume to 3, in {secs:.2f} s (cold); losses "
+        f"{[round(r['loss'], 5) for r in recs]}; checkpoint {size:.0f} MiB; K1 launches "
+        f"(datagen) {k1}")
+    if ([r["step"] for r in recs] != [0, 1, 2] or k1 != 3
+            or not all(math.isfinite(r["loss"]) for r in recs)):
+        raise AssertionError(f"train[{model} cli]: steps {recs}, K1 launches {k1}")
+
+    trainer, state, make_batch = cli_train.family_setup(model, seed=0, batch=batch, lr=1e-4,
+                                                        image_size=256, device=device)
+    args = make_batch()
+    dg_ms = cuda_ms(make_batch, iters=3, warmup=1)
+    trainer.train_step(state, *args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, losses = [], []
+    for _ in range(5):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        _, metrics = trainer.train_step(state, *args)
+        ev[1].record()
+        events.append(ev)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    times = [a.elapsed_time(b) for a, b in events]
+    losses = [float(v) for v in losses]
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"train[{model}]: batch {batch} at 256^2, float32, step times "
+        f"{[round(t, 2) for t in times]} ms; median {med:.2f} ms = {batch * 1000.0 / med:.2f} "
+        f"samples/s; peak memory {peak:.3f} GiB; datagen {dg_ms:.2f} ms per batch; loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f} on one fixed batch ({card})")
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"train[{model}]: the loss does not fall on a fixed batch: {losses}")
+    del state, args
+    torch.cuda.empty_cache()
+    _family_gpu_vs_cpu(model, 2, f32_tol, device)
+    return k1
+
+
 def phase_train(device, card):
     """The ICN trainer at full width (ngf 64, ndf 64, 256^2, batch 8): the CLI with
     a resume, fixed-batch loops in float32 and on bfloat16 inputs, and one step on
@@ -1038,6 +1219,11 @@ def phase_train(device, card):
         _train_loop(device, card, sample, dtype)
     _pool_backward_check(device)
     _train_gpu_vs_cpu(device, sample)
+    del sample
+    torch.cuda.empty_cache()
+    _bn_backward_check(device)
+    for model, batch, f32_tol in TRAIN_FAMILIES:
+        _train_family(model, batch, f32_tol, device, card)
     return launches
 
 
@@ -1214,7 +1400,9 @@ SERVE_IDS = (3, 7, 11, 15)
 SERVE_FRAMES = 12
 SERVE_WARM_REQUESTS = 3
 STREAM_FRAMES = 8
-STREAM_DEPTHS = (1, 2, 2, 1)  # each depth twice, in turns
+STREAM_DEPTHS = (1, 2)
+MULTI_FRAMES = 8  # frames a camera in the multi phase
+MULTI_CONFIGS = ((1, False), (2, False), (2, True), (4, True))  # (cameras, threaded)
 
 
 def _serving_setup(device, ctx):
@@ -1292,6 +1480,27 @@ def _serving_setup(device, ctx):
     return ctx
 
 
+def _service(device, ctx):
+    """The phases' one ``SceneService`` on the written directory (720x1280, seeded
+    full-width networks, the service's own spec), built once."""
+    from future_urban_scene_generation_tpu_torch.config import PipelineConfig
+    from future_urban_scene_generation_tpu_torch.pipeline import service
+
+    _serving_setup(device, ctx)
+    if "service" not in ctx:
+        root = ctx["root"]
+        cfg = PipelineConfig(
+            video_dir=ctx["video_dir"], kpoints_dir=os.path.join(root, "no_kpoints"),
+            checkpoints_dir=os.path.join(root, "no_ckpts"), device=device,
+            output_dir=os.path.join(root, "results_service"))
+        cfg.runtime.frame_hw = SERVE_HW
+        t0 = time.perf_counter()
+        ctx["service"] = service.SceneService(cfg)
+        log(f"serve: SceneService built in {time.perf_counter() - t0:.2f} s (seeded full-width "
+            f"networks, {ctx['service'].num_cads} procedural CAD, spec {ctx['service'].spec})")
+    return ctx["service"]
+
+
 def _pixels_differ(a: np.ndarray, b: np.ndarray):
     """(share of samples that differ, largest difference) of two uint8 images."""
     d = np.abs(a.astype(np.int16) - b.astype(np.int16))
@@ -1312,7 +1521,6 @@ def phase_serve(device, card, ctx):
     import io
 
     from future_urban_scene_generation_tpu_torch.cli import run_test
-    from future_urban_scene_generation_tpu_torch.config import PipelineConfig
     from future_urban_scene_generation_tpu_torch.ops import cuda_conv, cuda_raster
     from future_urban_scene_generation_tpu_torch.pipeline import runner, service
     from future_urban_scene_generation_tpu_torch.utils.native import read_png
@@ -1340,15 +1548,8 @@ def phase_serve(device, card, ctx):
         if rc != 0 or n_png != 12 or launches != {"raster": 1, "icn_stem_conv": 1}:
             raise AssertionError(f"serve[cli {label}]: rc {rc}, {n_png} PNGs, launches {launches}")
 
-    cfg = PipelineConfig(video_dir=video_dir, kpoints_dir=os.path.join(root, "no_kpoints"),
-                         checkpoints_dir=os.path.join(root, "no_ckpts"), device=device,
-                         output_dir=os.path.join(root, "results_service"))
-    cfg.runtime.frame_hw = SERVE_HW
-    t0 = time.perf_counter()
-    svc = service.SceneService(cfg)
-    log(f"serve: SceneService built in {time.perf_counter() - t0:.2f} s (seeded full-width "
-        f"networks, {svc.num_cads} procedural CAD, spec {svc.spec})")
-    ctx["service"] = svc
+    svc = _service(device, ctx)
+    cfg = svc.cfg
     t0 = time.perf_counter()
     frame, background, bboxes, meters = svc.request_arguments(1, list(SERVE_IDS))
     t_host = time.perf_counter() - t0
@@ -1421,20 +1622,10 @@ def phase_stream(device, card, ctx):
     """``StreamRunner`` at 720x1280, V=4, 8 frames, depth 1 and depth 2, against
     direct ``run_scene`` calls; ``TrackingStreamRunner`` on the 12 frames with the
     background-difference detector."""
-    from future_urban_scene_generation_tpu_torch.config import PipelineConfig
     from future_urban_scene_generation_tpu_torch.pipeline import runner, service, streaming
     from future_urban_scene_generation_tpu_torch.pipeline import tracking as trk
 
-    _serving_setup(device, ctx)
-    root, video_dir = ctx["root"], ctx["video_dir"]
-    svc = ctx.get("service")
-    if svc is None:
-        cfg = PipelineConfig(
-            video_dir=video_dir, kpoints_dir=os.path.join(root, "no_kpoints"),
-            checkpoints_dir=os.path.join(root, "no_ckpts"), device=device,
-            output_dir=os.path.join(root, "results_service"))
-        cfg.runtime.frame_hw = SERVE_HW
-        svc = service.SceneService(cfg)
+    svc = _service(device, ctx)
     frames_u8, bg_u8 = ctx["frames"], ctx["background"]
     vis_res = svc.cfg.runtime.vis_res
     n_frames = STREAM_FRAMES
@@ -1508,10 +1699,196 @@ def phase_stream(device, card, ctx):
         f"{tracker.throughput_fps:.2f} composited frames/s over the synthesized scenes ({card})")
     if first != (None, []) or not ids or not scenes or not finite:
         raise AssertionError("stream[tracking]: no confirmed track or no scene synthesized")
-    svc.close()
+    del scenes
+
+    # The pending detection is read through its own event: with other work in flight
+    # behind it (here ~0.3 s of float32 products), ``finalize`` returns at once. A
+    # read enqueued on the stream at finalize time would wait for all of it.
+    for frame in frames_u8[:3]:
+        tracker.submit_frame(frame, background=bg_u8)
+    torch.cuda.synchronize()
+    a = torch.rand(8192, 8192, device=device)
+    one = cuda_ms(lambda: a @ a, iters=2)
+    seen = []
+    real = detector.finalize
+
+    def probed(handle):
+        t0 = time.perf_counter()
+        out = real(handle)
+        seen.append((busy.query(), time.perf_counter() - t0))
+        return out
+
+    detector.finalize = probed
+    for _ in range(max(1, int(300.0 / one))):
+        a @ a
+    busy = torch.cuda.Event()
+    busy.record()
+    tracker.submit_frame(frames_u8[3], background=bg_u8)
+    detector.finalize = real
+    tracker.flush()
+    torch.cuda.synchronize()
+    log(f"stream[finalize]: with {int(300.0 / one)} products of {one:.1f} ms in flight, finalize "
+        f"of the pending detection returned in {seen[0][1] * 1e3:.2f} ms, the work behind it "
+        f"{'done' if seen[0][0] else 'still running'}")
+    if len(seen) != 1 or seen[0][0]:
+        raise AssertionError("stream: finalize waited for work enqueued after its detection")
+
+
+def phase_multi(device, card, ctx):
+    """``MultiStreamRunner`` at 720x1280, V=4, the service's spec, 8 frames a camera
+    (every camera sees the written frames, through its own detector and tracker), for
+    each of MULTI_CONFIGS: finite frames, the single camera's scene count on every
+    camera, one K1 and one K2 launch a scene. Prints the strict aggregate (all
+    cameras' frames over one wall clock), the sum over per-camera windows, and each
+    camera's latency. Returns the launches of the 2-camera threaded run."""
+    from future_urban_scene_generation_tpu_torch.ops import cuda_conv, cuda_raster
+    from future_urban_scene_generation_tpu_torch.pipeline import streaming
+    from future_urban_scene_generation_tpu_torch.pipeline import tracking as trk
+
+    svc = _service(device, ctx)
+    frames_u8, bg_u8 = ctx["frames"][:MULTI_FRAMES], ctx["background"]
+    bg_d = streaming.StreamRunner._upload(bg_u8, device)
+    single = kept = None
+    for n, threaded in MULTI_CONFIGS:
+        counts, finite = [0] * n, [True] * n
+
+        def consume(i, r):
+            counts[i] += 1
+            finite[i] &= bool(torch.isfinite(r.frames_icn).all()
+                              and torch.isfinite(r.frames_vunet).all())
+
+        multi = streaming.MultiStreamRunner(
+            svc.models, svc.cad_bank, svc.intrinsic, SERVE_HW, n_vehicles=len(SERVE_IDS),
+            n_streams=n, make_detector=lambda i: trk.BackgroundDiffDetector(bg_d),
+            inv_homographies=[svc.inv_homography] * n, threaded=threaded,
+            on_result=consume if threaded else None,
+            spec=svc.spec, vis_res=svc.cfg.runtime.vis_res, depth=2)
+        cuda_raster.LAUNCHES = cuda_conv.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            for frame in frames_u8:
+                for i in range(n):
+                    out, _ = multi.submit_frame(i, frame, background=bg_u8)
+                    if out is not None:
+                        consume(i, out)
+            for i, tail in enumerate(multi.flush()):
+                for r in tail:
+                    consume(i, r)
+        finally:
+            multi.close()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"raster": cuda_raster.LAUNCHES, "icn_stem_conv": cuda_conv.LAUNCHES}
+        lat = []
+        for s in multi.streams:
+            ls = sorted(s.latencies)
+            p90 = ls[int(0.9 * (len(ls) - 1))]
+            lat.append(f"{statistics.median(ls) * 1e3:.0f}/{p90 * 1e3:.0f}")
+        label = f"{n} cameras, {'threaded' if threaded else 'one thread'}"
+        log(f"multi[{label}]: depth {multi.streams[0].depth}, scenes per camera {counts}, "
+            f"{sum(counts)} scenes in {wall:.2f} s; aggregate {multi.aggregate_fps:.2f} composited "
+            f"frames/s by one wall clock, {multi.aggregate_fps_per_stream_windows:.2f} as the sum "
+            f"over per-camera windows; latency p50/p90 ms per camera {lat}; launches {launches} "
+            f"({card})")
+        if single is None:
+            single = counts[0]
+        if counts != [single] * n or not all(finite) or single <= 0:
+            raise AssertionError(f"multi[{label}]: scenes per camera {counts} (one camera alone: "
+                                 f"{single}), finite {finite}")
+        if launches != {"raster": sum(counts), "icn_stem_conv": sum(counts)}:
+            raise AssertionError(f"multi[{label}]: {launches} launches for {sum(counts)} scenes")
+        if (n, threaded) == (2, True):
+            kept = launches
+    return kept
+
+
+def phase_warmup(card):
+    """``cli.warmup`` as a deploy runs it: a fresh process, the service's resolution,
+    the perception path. Prints what it prints."""
+    argv = [sys.executable, "-m", "future_urban_scene_generation_tpu_torch.cli.warmup",
+            "--frame-hw", *(str(n) for n in SERVE_HW), "--vehicles", "4", "--perception"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, cwd=ROOT, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=ROOT))
+    secs = time.perf_counter() - t0
+    said = proc.stdout.strip().splitlines()
+    log(f"warmup: exit {proc.returncode} in {secs:.2f} s (process start to end); it said: {said} "
+        f"({card})")
+    if (proc.returncode != 0 or not any(ln.startswith("BUILD_SECONDS=") for ln in said)
+            or not any(ln.startswith("warmed V=4 (720x1280") and "run_scene" in ln
+                       for ln in said)):
+        raise AssertionError(f"warmup failed: {proc.stderr[-2000:]}")
+
+
+def phase_web(device, card, ctx):
+    """The web GUI's server over the phases' service, in a thread, asked over a local
+    socket: the page, the boxes, an annotated frame, RUN with the four ids, a result.
+    The result is held to a direct ``run_request`` under the serve phase's limits."""
+    import contextlib
+    import io
+    import threading
+    import urllib.request
+
+    from future_urban_scene_generation_tpu_torch.gui import web
+    from future_urban_scene_generation_tpu_torch.utils.native import decode_png, read_png
+
+    svc = _service(device, ctx)
+    with contextlib.redirect_stdout(io.StringIO()):
+        direct = [read_png(p) for p in svc.run_request(1, list(SERVE_IDS))]
+    server = web.make_server(svc.cfg, port=0, service=svc)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    took = {}
+
+    def ask(name, path, data=None):
+        t0 = time.perf_counter()
+        req = urllib.request.Request(base + path, data=data,
+                                     method="POST" if data is not None else "GET")
+        with contextlib.redirect_stdout(io.StringIO()):
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                body = resp.read()
+        took[name] = time.perf_counter() - t0
+        return body
+
+    try:
+        page = ask("page", "/").decode()
+        boxes = json.loads(ask("boxes", "/boxes/1"))
+        plain = decode_png(ask("frame", "/frame/1.png"))
+        ids = ",".join(str(i) for i in SERVE_IDS)
+        drawn = decode_png(ask("annotated frame", f"/frame/1.png?preview={SERVE_IDS[0]}"
+                                                   f"&selected={ids}"))
+        body = json.dumps({"frame_id": 1, "ids": list(SERVE_IDS)}).encode()
+        outputs = json.loads(ask("run", "/run", body))["outputs"]
+        results = [decode_png(ask(f"result {i}", f"/results/{i}.png")) for i in (0, 11)]
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    if "RUN" not in page or "TPU" in page or {b["id"] for b in boxes} != set(SERVE_IDS):
+        raise AssertionError(f"web: page or boxes wrong: {boxes}")
+    green = int((drawn == (0, 255, 0)).all(-1).sum())
+    yellow = int((drawn == (255, 255, 0)).all(-1).sum())
+    if plain.shape != (*SERVE_HW, 3) or green < 1000 or yellow < 10:
+        raise AssertionError(f"web: the annotated frame shows {green} green and {yellow} "
+                             "yellow pixels")
+    worst = (0.0, 0)
+    for got, want in zip(results, (direct[0], direct[11])):
+        share, step = _pixels_differ(got, want)
+        worst = (max(worst[0], share), max(worst[1], step))
+    log(f"web: request seconds {({k: round(v, 3) for k, v in took.items()})}; {len(outputs)} "
+        f"outputs; selected boxes {green} px, preview track {yellow} px; results 0 and 11 against "
+        f"a direct run_request: share of samples that differ {worst[0]:.2e} (budget "
+        f"{EQUAL_SHARE:g}), largest step {worst[1]} (budget {EQUAL_STEP}) ({card})")
+    if len(outputs) != 12 or worst[0] > EQUAL_SHARE or worst[1] > EQUAL_STEP:
+        raise AssertionError("web: /run's results differ from a direct request's")
+    shutil.rmtree(svc.cfg.output_dir, ignore_errors=True)
 
 
 def _drop_serving_data(ctx):
+    if "service" in ctx:
+        ctx["service"].close()
     if ctx:
         shutil.rmtree(ctx["root"], ignore_errors=True)
 
@@ -1551,8 +1928,15 @@ def main():
             phase_serve(device, smi, serving)
         if "stream" in phases:
             phase_stream(device, smi, serving)
+        if "multi" in phases:
+            log(f"multi: launches on this slice's path (2 cameras, threaded): "
+                f"{phase_multi(device, smi, serving)}")
+        if "web" in phases:
+            phase_web(device, smi, serving)
     finally:
         _drop_serving_data(serving)  # ~130 MB of frames and results stay on the machine
+    if "warmup" in phases:
+        phase_warmup(smi)
     log(f"phases {phases} passed in {time.perf_counter() - t_start:.1f} s after the build")
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)

@@ -10,9 +10,10 @@ PyQt5 GUI to pick vehicles (run_test.py:156-161); here ``--select-ids`` and
       [--device cuda] --select-ids 3 7 --frame-id 120
 
 ``--device`` defaults to ``cuda``; a missing GPU is an error, never a silent move to
-the CPU. The flags of parts that are not ported yet (``--inpaint``, ``--segmenter
-maskrcnn``, ``--aot-dir``, ``--gui``, ``--web-gui``) parse and exit 2 with a line
-that names where the part waits in ROADMAP.md.
+the CPU. ``--web-gui`` serves the browser GUI on ``--host``/``--port`` and ``--gui``
+opens the Qt window (exit 2 without PyQt5). The flags of parts that are not ported
+yet (``--inpaint``, ``--segmenter maskrcnn``, ``--aot-dir``) parse and exit 2 with a
+line that names where the part waits in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -53,8 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="vehicle track ids to synthesize (headless mode)")
     p.add_argument("--frame-id", type=int, default=1)
     p.add_argument("--output-dir", type=Path, default=Path("./results"))
-    p.add_argument("--gui", action="store_true", help="the Qt GUI (not ported)")
-    p.add_argument("--web-gui", action="store_true", help="the browser GUI (not ported)")
+    p.add_argument("--gui", action="store_true", help="the Qt GUI (needs PyQt5)")
+    p.add_argument("--web-gui", action="store_true",
+                   help="the browser GUI (standard-library HTTP server)")
     p.add_argument("--host", default="127.0.0.1", help="bind address for --web-gui")
     p.add_argument("--port", type=int, default=8000, help="port for --web-gui")
     p.add_argument("--frame-hw", type=int, nargs=2, default=None, metavar=("H", "W"),
@@ -76,8 +78,6 @@ def _not_ported(args):
         (args.inpaint, "--inpaint", "queue 1, S7 (inpaint branch)"),
         (args.segmenter == "maskrcnn", "--segmenter maskrcnn", "queue 1, S7 (inpaint branch)"),
         (args.aot_dir is not None, "--aot-dir", "queue 1, S10 (AOT)"),
-        (args.gui, "--gui", "queue 1, S8 (gui)"),
-        (args.web_gui, "--web-gui", "queue 1, S8 (gui/web)"),
     ):
         if wanted:
             return flag, where
@@ -120,6 +120,22 @@ def main(argv=None):
     cfg.runtime.vis_res = args.vis_res
     if args.vis_scale is not None:
         print("--vis-scale is deprecated and ignored (see --vis-res)", file=sys.stderr)
+
+    if args.web_gui:
+        from future_urban_scene_generation_tpu_torch.gui.web import launch_web_gui
+
+        return launch_web_gui(cfg, host=args.host, port=args.port)
+
+    if args.gui:
+        try:
+            # launch_gui imports PyQt5 in its body, so the call sits inside the guard.
+            from future_urban_scene_generation_tpu_torch.gui.app import launch_gui
+
+            return launch_gui(cfg)
+        except ImportError as exc:
+            print(f"GUI unavailable ({exc}); use --select-ids for headless mode.",
+                  file=sys.stderr)
+            return 2
 
     if not cfg.select_ids:
         print("No --select-ids given (headless mode requires explicit vehicle ids).",

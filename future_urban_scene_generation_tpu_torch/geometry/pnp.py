@@ -13,6 +13,7 @@ uses ``jax.jacfwd``.
 """
 from __future__ import annotations
 
+import threading
 from typing import Tuple
 
 import torch
@@ -27,6 +28,11 @@ _EPS1 = 1e-8
 _EPS2 = 1e-8
 _MAX_ITERS = 50
 _JTJ_COLLAPSE = 1e-7
+
+# torch's forward-mode AD keeps its dual levels in one process-wide stack: two
+# threads inside ``jacfwd`` at once (two camera streams, each on its worker) tear
+# each other's level down. One Jacobian at a time, then.
+_JACFWD_LOCK = threading.Lock()
 
 CANONICAL_RVECS = (
     (1.1509305, -1.1552572, 1.2745042),
@@ -127,7 +133,8 @@ def lm_pnp_batch(points3d, points2d, init_rvec, init_tvec, focals, centers):
 
         # body_fn, computed for every solve and committed only where active.
         err = err_fn(params)
-        jac_new = jac_fn(params, points3d, points2d, focals, centers)
+        with _JACFWD_LOCK:
+            jac_new = jac_fn(params, points3d, points2d, focals, centers)
         jtj = torch.einsum("bmi,bmj->bij", jac_new, jac_new)
         collapse = torch.sum(jtj, dim=(-1, -2)) < _JTJ_COLLAPSE
         lam_b = torch.where(

@@ -18,13 +18,31 @@ from future_urban_scene_generation_tpu_torch.models.layers import (
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """Inference batch norm (running statistics) on NHWC."""
+    """Batch norm on NHWC. In eval mode it normalizes by the running statistics. In
+    train mode it normalizes by the batch statistics and moves the running ones
+    toward them as the JAX package does (pipeline/training.py
+    ``update_bn_running_stats``): momentum 0.1 and the BIASED batch variance, where
+    ``torch.nn.BatchNorm2d`` would store the unbiased one."""
 
     def forward(self, x):
-        y = F.batch_norm(
-            x.permute(0, 3, 1, 2), self.running_mean, self.running_var, self.weight,
-            self.bias, False, 0.0, self.eps,
-        )
+        xc = x.permute(0, 3, 1, 2)
+        if not self.training:
+            y = F.batch_norm(xc, self.running_mean, self.running_var, self.weight,
+                             self.bias, False, 0.0, self.eps)
+            return y.permute(0, 2, 3, 1)
+        n = x.numel() // x.shape[-1]
+        if n == 1:  # one value a channel (torch refuses it): x is its own mean
+            mean, var = x.detach().reshape(-1), torch.zeros_like(self.running_var)
+            y = (xc - xc) * self.weight[:, None, None] + self.bias[:, None, None]
+        else:
+            # With momentum 1 the two scratch buffers come back holding this batch's
+            # mean and its unbiased variance.
+            mean = torch.zeros_like(self.running_mean)
+            var = torch.ones_like(self.running_var)
+            y = F.batch_norm(xc, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var * ((n - 1) / n), self.momentum)
         return y.permute(0, 2, 3, 1)
 
 

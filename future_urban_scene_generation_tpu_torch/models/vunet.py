@@ -1,11 +1,14 @@
 """Variational U-Net for vehicle novel-view synthesis, NHWC.
 
 Counterpart of the JAX package's models/vunet.py (``Vunet`` with
-``encode_appearance`` :487 and ``decode_shape`` :494) in the deployment config
-(subpixel up mode, weight norm, vunet_256). Sampling runs with ``cov = 0``: every
-latent is its mean (the JAX package's choice, PARITY §7), so dropout and sampler
-noise never run. Module names are the reference's (vunet/models.py:17-485), so
-``vunet.pth`` loads unchanged.
+``encode_appearance`` :487 and ``decode_shape`` :494, built on ``forward_enc_up``
+:365, ``forward_enc_down`` :380, ``forward_dec_up`` :403, ``forward_dec_down`` :428)
+in the deployment config (subpixel up mode, weight norm). Serving samples with
+``cov = 0``: every latent is its mean (the JAX package's choice, PARITY §7), and no
+noise is drawn. Training samples with ``cov = 1``: every ``Sampler`` returns
+``(mu, mu + noise * cov)``, the noise from a ``NoiseSource``. Dropout never runs
+(the JAX trainer applies the network deterministically). Module names are the
+reference's (vunet/models.py:17-485), so ``vunet.pth`` loads unchanged.
 """
 from __future__ import annotations
 
@@ -18,6 +21,29 @@ from future_urban_scene_generation_tpu_torch.models.layers import (
     depth_to_space,
     space_to_depth,
 )
+
+
+class NoiseSource:
+    """Standard-normal noise for the samplers, one draw per ``Sampler`` call in call
+    order (appearance decoder: 2 draws; each autoregressive block: 4). ``source`` is
+    a ``torch.Generator`` (the noise is drawn on the generator's device and moved to
+    the tensor's if that is another one: a CPU generator gives a CPU and a CUDA run
+    the same noise), or an iterable of ready noise tensors (what a comparison with
+    another implementation hands in)."""
+
+    def __init__(self, source):
+        self._gen = source if isinstance(source, torch.Generator) else None
+        self._given = None if self._gen is not None else iter(source)
+
+    def draw(self, like: torch.Tensor) -> torch.Tensor:
+        if self._gen is not None:
+            return torch.randn(like.shape, dtype=like.dtype, device=self._gen.device,
+                               generator=self._gen).to(like.device)
+        noise = next(self._given)
+        if noise.shape != like.shape:
+            raise ValueError(f"noise of shape {tuple(noise.shape)} handed to a sampler "
+                             f"of shape {tuple(like.shape)}")
+        return noise.to(like)
 
 
 class MyConv(nn.Module):
@@ -79,14 +105,18 @@ class UpSample(nn.Module):
 
 
 class Sampler(nn.Module):
-    """mu = conv(x); with cov = 0 the sample is mu."""
+    """mu = conv(x); sample = mu + N(0, 1) * cov (vunet/layers.py:158-170). Returns
+    (mu, sample); with cov = 0 the sample is mu and nothing is drawn."""
 
     def __init__(self, cin, cout):
         super().__init__()
         self.conv = MyConv(cin, cout, 3, 1, 1)
 
-    def forward(self, x):
-        return self.conv(x)
+    def forward(self, x, cov: float = 0.0, noise: NoiseSource = None):
+        mu = self.conv(x)
+        if cov == 0.0:
+            return mu, mu
+        return mu, mu + noise.draw(mu) * cov
 
 
 class InitBlock(nn.Module):
@@ -142,8 +172,10 @@ class EndBlock(nn.Module):
 
 
 class AutoRegressiveBlock(nn.Module):
-    """4-quadrant autoregressive latent block; with the appearance means given,
-    the chained input is the NiN'd appearance quadrant."""
+    """4-quadrant autoregressive latent block (vunet/models.py:17-89): each
+    quadrant's latent is sampled and chained through residuals; with the appearance
+    latents given, the chained input is the NiN'd appearance quadrant instead of the
+    sampled latent. Returns (x, mu, z)."""
 
     def __init__(self):
         super().__init__()
@@ -155,21 +187,23 @@ class AutoRegressiveBlock(nn.Module):
             self.add_module(f"residual_{i}", Residual(1024, 512))
             self.add_module(f"nin_{i}", NiN(128, 512))
 
-    def forward(self, x, skip_a, enc_down_mu=None):
+    def forward(self, x, skip_a, enc_down_mu=None, cov: float = 0.0, noise=None):
         x = self.residual_init(x, skip_a)
         x_ = space_to_depth(self.residual_s2d(x), 2)
         if enc_down_mu is not None:
             gs = torch.chunk(space_to_depth(enc_down_mu, 2), 4, dim=-1)
             g = [getattr(self, f"nin_{i}")(gs[i]) for i in range(3)]
-        mus = []
+        mus, zs = [], []
         for i in range(4):
-            mu_i = getattr(self, f"sampler_{i}")(x_)
+            mu_i, z_i = getattr(self, f"sampler_{i}")(x_, cov, noise)
             mus.append(mu_i)
+            zs.append(z_i)
             if i < 3:
-                skip = g[i] if enc_down_mu is not None else getattr(self, f"nin_{i}")(mu_i)
+                skip = g[i] if enc_down_mu is not None else getattr(self, f"nin_{i}")(z_i)
                 x_ = getattr(self, f"residual_{i}")(x_, skip)
         mu = depth_to_space(torch.cat(mus, dim=-1), 2)
-        return x, mu
+        z = mu if cov == 0.0 else depth_to_space(torch.cat(zs, dim=-1), 2)
+        return x, mu, z
 
 
 class Vunet(nn.Module):
@@ -227,8 +261,9 @@ class Vunet(nn.Module):
             self.shape_decoder_5_a = UpBlock(64, 32, 32)
         self.shape_decoder_6 = EndBlock(64, 32, 3)
 
-    def encode_appearance(self, x):
-        """Appearance means [mu_0, mu_1] of x (B, 256, 256, 6) — once per vehicle."""
+    # -- appearance branch (vunet/models.py:333-353, 390-408) ---------------------
+
+    def forward_enc_up(self, x):
         skips = []
         x, _ = self.app_encoder_1(x)
         x, _ = self.app_encoder_1_a(x)
@@ -241,20 +276,23 @@ class Vunet(nn.Module):
         x, sl = self.app_encoder_4(x)
         outputs = [sl[-2], x]
         skips.append(self.app_skip_4_c(x))
+        return outputs, skips
 
-        x = self.app_bottleneck(outputs[-1])
+    def forward_enc_down(self, enc_up_outputs, skips, cov: float = 0.0, noise=None):
+        """([mu_0, mu_1], [z_0, z_1]) of the appearance decoder."""
+        x = self.app_bottleneck(enc_up_outputs[-1])
         x = self.app_decoder_1_a(x, skips[-1])
-        mu_0 = self.app_decoder_1_b(x)
-        x_ = self.app_decoder_1_c(torch.cat([outputs[-2], mu_0], dim=-1))
+        mu_0, z_0 = self.app_decoder_1_b(x, cov, noise)
+        x_ = self.app_decoder_1_c(torch.cat([enc_up_outputs[-2], z_0], dim=-1))
         x = self.app_decoder_1_d(x, x_)
         x = self.app_decoder_1_e(x)
         x = self.app_decoder_2_a(x, None)
-        mu_1 = self.app_decoder_2_b(x)
-        return [mu_0, mu_1]
+        mu_1, z_1 = self.app_decoder_2_b(x, cov, noise)
+        return [mu_0, mu_1], [z_0, z_1]
 
-    def decode_shape(self, y_tilde, mu_app):
-        """Novel view (B, 256, 256, 3) from a dst sketch y_tilde and the
-        appearance means (each with leading B)."""
+    # -- shape branch (vunet/models.py:355-388, 410-459) --------------------------
+
+    def forward_dec_up(self, y_tilde):
         skips = []
         x, sl = self.shape_encoder_1(y_tilde)
         skips += [self.shape_skip_1_b(sl[-2]), self.shape_skip_1_c(sl[-1])]
@@ -267,16 +305,25 @@ class Vunet(nn.Module):
                 getattr(self, f"shape_skip_{i}_b")(sl[-2]),
                 getattr(self, f"shape_skip_{i}_c")(sl[-1]),
             ]
+        return [x], skips
 
-        x = self.shape_bottleneck(x)
+    def forward_dec_down(self, dec_up_outputs, skips, enc_down_mu=(), cov: float = 0.0,
+                         noise=None):
+        """(x_tilde, [mu_0, mu_1], [z_0, z_1]) of the shape decoder; ``enc_down_mu``
+        are the appearance latents that steer the two autoregressive blocks (empty:
+        the blocks chain their own samples)."""
+        skips = list(skips)
+        x = self.shape_bottleneck(dec_up_outputs[-1])
         skip_a, skip_b = skips.pop(), skips.pop()
-        x, mu_0 = self.shape_decoder_1(x, skip_a, mu_app[0])
-        x = self.shape_decoder_1_n(torch.cat([x, mu_0], dim=-1))
+        mu_a = None if len(enc_down_mu) == 0 else enc_down_mu[0]
+        x, mu_0, z_0 = self.shape_decoder_1(x, skip_a, mu_a, cov, noise)
+        x = self.shape_decoder_1_n(torch.cat([x, z_0], dim=-1))
         x = self.shape_decoder_1_o(x, skip_b)
         x = self.shape_decoder_1_p(x)
         skip_a, skip_b = skips.pop(), skips.pop()
-        x, mu_1 = self.shape_decoder_2(x, skip_a, mu_app[1])
-        x = self.shape_decoder_2_n(torch.cat([x, mu_1], dim=-1))
+        mu_a = None if len(enc_down_mu) == 0 else enc_down_mu[1]
+        x, mu_1, z_1 = self.shape_decoder_2(x, skip_a, mu_a, cov, noise)
+        x = self.shape_decoder_2_n(torch.cat([x, z_1], dim=-1))
         x = self.shape_decoder_2_o(x, skip_b)
         x = self.shape_decoder_2_p(x)
         x = self.shape_decoder_3(x, skips.pop(), skips.pop())
@@ -286,4 +333,25 @@ class Vunet(nn.Module):
             x = self.shape_decoder_5_a(x, skips.pop(), skips.pop())
         x = self.shape_decoder_6(x, skips.pop(), skips.pop())
         assert not skips
-        return x
+        return x, [mu_0, mu_1], [z_0, z_1]
+
+    def forward(self, y_tilde, x_app, cov: float = 1.0, noise=None):
+        """The training forward (vunet/models.py:461-481, ``mean_appearance``):
+        (x_tilde, mu_app, mu_shape); the shape decoder is steered by the SAMPLED
+        appearance latents. ``noise``: what ``NoiseSource`` takes (needed for
+        cov != 0)."""
+        noise = None if noise is None else NoiseSource(noise)
+        mu_app, z_app = self.forward_enc_down(*self.forward_enc_up(x_app), cov, noise)
+        x_tilde, mu_shape, _ = self.forward_dec_down(*self.forward_dec_up(y_tilde), z_app,
+                                                     cov, noise)
+        return x_tilde, mu_app, mu_shape
+
+    def encode_appearance(self, x):
+        """Appearance means [mu_0, mu_1] of x (B, 256, 256, 6), once per vehicle
+        (serving: cov = 0)."""
+        return self.forward_enc_down(*self.forward_enc_up(x))[0]
+
+    def decode_shape(self, y_tilde, mu_app):
+        """Novel view (B, 256, 256, 3) from a dst sketch y_tilde and the
+        appearance means, each with leading B (serving: cov = 0)."""
+        return self.forward_dec_down(*self.forward_dec_up(y_tilde), mu_app)[0]

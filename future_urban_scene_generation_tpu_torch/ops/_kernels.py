@@ -23,6 +23,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -37,6 +38,7 @@ NVCC_FLAGS = (
 )
 
 _LIB = None
+_LOAD_LOCK = threading.Lock()  # one build, however many threads reach a cold tree
 BUILD_LOG = ""
 BUILD_SECONDS = None
 
@@ -104,7 +106,13 @@ def load():
     global _LIB
     if _LIB is not None:
         return _LIB
-    lib = ctypes.CDLL(str(build()))
+    with _LOAD_LOCK:
+        if _LIB is None:
+            _LIB = _bind(ctypes.CDLL(str(build())))
+    return _LIB
+
+
+def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fusg_raster_corners.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.fusg_raster_corners.restype = i
@@ -118,5 +126,4 @@ def load():
     lib.fusg_conv_small_cin.restype = i
     lib.fusg_conv_smem_bytes.argtypes = [i, i, i, i]
     lib.fusg_conv_smem_bytes.restype = i
-    _LIB = lib
     return lib

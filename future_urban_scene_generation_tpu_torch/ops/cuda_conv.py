@@ -29,6 +29,7 @@ launches: ``LAUNCHES`` (K2), ``SMALL_CIN_V2_LAUNCHES`` (K3) and
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
@@ -39,6 +40,7 @@ from future_urban_scene_generation_tpu_torch.ops import _kernels
 LAUNCHES = 0
 SMALL_CIN_V2_LAUNCHES = 0
 SMALL_CIN_LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 _TILE = 16
 _WGMMA_K = 7  # the kernel size the wgmma kernel is instantiated for (the stems)
@@ -228,7 +230,8 @@ def icn_stem_conv(sketch, central, planes, kernel, pad: int = 3,
     )
     if rc != 0:
         raise RuntimeError(f"fusg_stem_conv launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    with _COUNT_LOCK:  # scenes of several streams launch from worker threads
+        LAUNCHES += 1
     return out
 
 
@@ -284,7 +287,8 @@ def conv_small_cin_v2(x, kernel) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"conv_small_cin_v2: unsupported device {x.device}")
     out = _launch_small_cin(x, kernel)
-    SMALL_CIN_V2_LAUNCHES += 1
+    with _COUNT_LOCK:  # scenes of several streams launch from worker threads
+        SMALL_CIN_V2_LAUNCHES += 1
     return out
 
 
@@ -297,5 +301,6 @@ def conv_small_cin(x, kernel) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"conv_small_cin: unsupported device {x.device}")
     out = _launch_small_cin(x, kernel)
-    SMALL_CIN_LAUNCHES += 1
+    with _COUNT_LOCK:  # scenes of several streams launch from worker threads
+        SMALL_CIN_LAUNCHES += 1
     return out

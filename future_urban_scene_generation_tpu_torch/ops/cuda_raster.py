@@ -29,6 +29,7 @@ for bit), :func:`indexed_loader_plain` (the indexed loader's addressing),
 """
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
@@ -53,6 +54,7 @@ _PLAIN_CHUNK = 128  # triangles per step of the plain version
 
 LAUNCHES = 0  # K1: rasterize_corners
 INDEXED_LAUNCHES = 0  # K1': rasterize_indexed
+_COUNT_LOCK = threading.Lock()
 
 
 def triangle_planes_corners(screen_xyz: torch.Tensor, color_rgb: torch.Tensor,
@@ -430,7 +432,8 @@ def rasterize_corners(screen_xyz: torch.Tensor, color_rgb: torch.Tensor, out_hw,
     if screen_xyz.device.type != "cuda":
         raise ValueError(f"rasterize_corners: unsupported device {screen_xyz.device}")
     out = launch_corners(screen_xyz, color_rgb, out_hw, cull)
-    LAUNCHES += 1
+    with _COUNT_LOCK:  # scenes of several streams launch from worker threads
+        LAUNCHES += 1
     return out.image, out.background
 
 
@@ -521,5 +524,6 @@ def rasterize_indexed(verts_screen: torch.Tensor, triangles: torch.Tensor,
     if verts_screen.device.type != "cuda":
         raise ValueError(f"rasterize_indexed: unsupported device {verts_screen.device}")
     out = launch_indexed(verts_screen, triangles, vert_colors, out_hw)
-    INDEXED_LAUNCHES += 1
+    with _COUNT_LOCK:  # scenes of several streams launch from worker threads
+        INDEXED_LAUNCHES += 1
     return out.image, out.background

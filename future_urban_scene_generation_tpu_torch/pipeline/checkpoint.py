@@ -7,10 +7,14 @@ which converts the reference's ``.pth`` files to flax trees and caches them. The
 port's modules carry the reference's state-dict names, so the zoo loads with
 ``load_state_dict(strict=True)`` and there is nothing to convert or cache.
 
-The trainer's file holds both networks' state dicts, both optimizers' state dicts
-and the iteration; the generator's keys are the reference's, so
-``state_dict()["gen"]`` loads ``strict=True`` into the scene's ``Models.icn`` (the
-train -> serve chain of docs/TRAINING.md).
+``save`` / ``restore`` take any train state with ``state_dict()`` and
+``load_state_dict()`` (``training.GANTrainState``, ``training.TrainState``). The ICN
+trainer's file holds both networks' state dicts, both optimizers' and the
+iteration; a single-network trainer's holds the network's, the optimizer's and the
+iteration. The networks' keys are the reference's, so ``state_dict()["gen"]`` loads
+``strict=True`` into the scene's ``Models.icn`` and ``["module"]`` into
+``Models.vunet`` / ``.hourglass`` / ``.cad`` (the train -> serve chain of
+docs/TRAINING.md).
 """
 from __future__ import annotations
 
@@ -19,10 +23,8 @@ from pathlib import Path
 
 import torch
 
-from future_urban_scene_generation_tpu_torch.pipeline.training import GANTrainState
 
-
-def save(path, state: GANTrainState) -> None:
+def save(path, state) -> None:
     """Write ``state`` to ``path`` (through a temporary file, so a crash mid-write
     leaves the previous checkpoint in place)."""
     path = Path(path)
@@ -31,9 +33,10 @@ def save(path, state: GANTrainState) -> None:
     os.replace(tmp, path)
 
 
-def restore(path, state: GANTrainState) -> GANTrainState:
+def restore(path, state):
     """Load the checkpoint at ``path`` into ``state`` (networks, optimizers and
-    iteration, onto the networks' devices) and return it."""
+    iteration, onto the networks' devices) and return it. A file written from
+    another kind of state raises."""
     state.load_state_dict(torch.load(Path(path), map_location="cpu", weights_only=True))
     return state
 

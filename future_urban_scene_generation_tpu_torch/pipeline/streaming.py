@@ -1,7 +1,7 @@
 """Streaming scene synthesis: models and assets stay on the device, frames stream in.
 
 Counterpart of the JAX package's pipeline/streaming.py (``StreamRunner`` :32-163,
-``TrackingStreamRunner`` :166-267; ``MultiStreamRunner`` is not ported yet). The
+``TrackingStreamRunner`` :166-267, ``MultiStreamRunner`` :270-447). The
 reference is strictly request-per-click through its GUI; for sustained serving this
 runner keeps up to ``depth`` scenes in flight: a frame is uploaded from pinned host
 memory without blocking (uint8 frames convert to float on the device), the scene is
@@ -18,6 +18,8 @@ building the bank and the models.
 from __future__ import annotations
 
 import collections
+import queue
+import threading
 import time
 from typing import Deque, Optional, Tuple
 
@@ -195,7 +197,7 @@ class TrackingStreamRunner(StreamRunner):
     """
 
     def __init__(self, models, cad_bank, intrinsic, frame_hw, n_vehicles, *,
-                 detector, inv_homography=None, stride: int = 2,
+                 detector=None, inv_homography=None, stride: int = 2,
                  min_track_frames: int = 3, tracker=None,
                  overlap_detect: bool = True, **kwargs):
         super().__init__(models, cad_bank, intrinsic, frame_hw, n_vehicles, **kwargs)
@@ -205,6 +207,10 @@ class TrackingStreamRunner(StreamRunner):
         self.stride = stride
         self.overlap_detect = bool(overlap_detect)
         self._pending_detect = None
+
+    def _confirmed(self):
+        conf = getattr(self.tracker, "confirmed", None)
+        return conf() if callable(conf) else []
 
     def flush(self):
         # Fold the in-flight detection into the tracker (its frame was never
@@ -232,7 +238,7 @@ class TrackingStreamRunner(StreamRunner):
             prev = self._pending_detect
             self._pending_detect = handle
             if prev is None:  # first frame: nothing to finalize yet
-                return None, self.tracker.confirmed()
+                return None, self._confirmed()
             boxes, _scores = self.detector.finalize(prev)
         else:
             boxes, _scores = self.detector(frame_d)
@@ -258,3 +264,171 @@ class TrackingStreamRunner(StreamRunner):
         b, m = self._pad(np.stack(sel_boxes), np.stack(sel_meters))
         t0 = time.perf_counter()
         return self._submit_scene(t0, frame_d, bg_d, b, m), confirmed
+
+
+class MultiStreamRunner:
+    """N camera streams through ONE set of models and one CAD bank.
+
+    The reference is single-camera by contract (one ``vdo.avi`` per run); serving
+    multiplexes several cameras onto one device. Per-stream STATE is isolated: each
+    stream owns its tracker, its detector (and that camera's background model), its
+    pending detection and its latency statistics. Weights and CAD bank are shared
+    and read-only, and every stream submits the same fixed (frame_hw, n_vehicles,
+    n_steps) shapes.
+
+    make_detector: stream_idx -> detector (each stream needs its own).
+
+    ``threaded=True`` gives each stream a worker thread that owns exactly that stream
+    (no locks on per-stream state) and a queue of 8 frames: ``submit_frame`` becomes
+    enqueue-and-return ``(None, [])``, and drained results go to
+    ``on_result(stream_idx, result)`` in the worker thread if given, else accumulate
+    in ``results[stream_idx]`` until ``flush()``. Pass ``on_result`` (consume and
+    release) for long runs: each retained SceneResult keeps two (S, H, W, 3) float32
+    stacks on the device (133 MB at 720x1280 and S = 6). Threads do NOT raise the
+    aggregate today: the scene is paced by the host's launches, which hold the
+    interpreter lock (and the PnP Jacobian is serialized, ``geometry/pnp.py``), so
+    workers contend for it. Measured on an NVIDIA H100 80GB HBM3 at 700 W, 720x1280,
+    V = 4 (``chip_smoke.py --phases multi``; PERF.md section 6): 2 cameras
+    12.85 composited frames/s from one thread against 9.71 threaded, 4 cameras
+    5.57-6.18 threaded. The mode is for callers that must not block in
+    ``submit_frame``.
+
+    One shared ``BoundedSemaphore`` of ``max_inflight`` permits bounds the scenes in
+    flight across all streams in threaded mode (a scene holds a permit from dispatch
+    to drain), and ``depth`` is clamped to ``max_inflight // n_streams``: a worker
+    that holds a full depth's permits releases one (drains) BEFORE it acquires the
+    next, so a blocked worker holds no permit it could not give back and the permit
+    holders can always reach their own drain. The default of 6 permits is the JAX
+    package's; at 4 cameras on the card 4, 6 and 8 permits gave the same aggregate
+    (5.76, 5.57-6.18, 5.94 frames/s) and 8 (depth 2) doubled the latency, so 6 stays
+    as a bound on device memory.
+
+    All workers enqueue on the device's default CUDA stream, so scenes of different
+    cameras run on the device in the order their workers dispatched them, as on the
+    JAX package's single device queue. (The current stream and the grad mode are
+    thread-local in torch: ``run_scene`` is ``torch.no_grad`` by decoration, and a
+    worker that never sets a stream uses the default one.) A CUDA stream per worker
+    measured slower in the same run (2 cameras 8.34 against 9.71, 4 cameras 5.10
+    against 5.57-6.18): the device idles most of a scene either way.
+
+    An exception in one worker is kept and raised by that stream's next
+    ``submit_frame`` and by ``flush``; frames queued behind it are dropped.
+    """
+
+    def __init__(self, models, cad_bank, intrinsic, frame_hw, n_vehicles, *,
+                 n_streams: int, make_detector, inv_homographies=None,
+                 threaded: bool = False, max_inflight: Optional[int] = None,
+                 on_result=None, **kwargs):
+        if inv_homographies is None:
+            inv_homographies = [None] * n_streams
+        gate = None
+        if threaded:
+            max_inflight = 6 if max_inflight is None else int(max_inflight)
+            gate = threading.BoundedSemaphore(max_inflight)
+            kwargs["depth"] = max(1, min(int(kwargs.pop("depth", 2)),
+                                         max_inflight // max(n_streams, 1)))
+        self.streams = [
+            TrackingStreamRunner(
+                models, cad_bank, intrinsic, frame_hw, n_vehicles,
+                detector=make_detector(i), inv_homography=inv_homographies[i],
+                inflight_gate=gate, **kwargs,
+            )
+            for i in range(n_streams)
+        ]
+        self.threaded = bool(threaded)
+        self.on_result = on_result
+        self.results = [[] for _ in range(n_streams)]
+        if self.threaded:
+            self._queues = [queue.Queue(maxsize=8) for _ in range(n_streams)]
+            self._errors: list = [None] * n_streams
+            self._workers = []
+            for i in range(n_streams):
+                w = threading.Thread(target=self._worker, args=(i,), daemon=True,
+                                     name=f"fusg-stream-{i}")
+                w.start()
+                self._workers.append(w)
+
+    def _worker(self, i: int):
+        q = self._queues[i]
+        while True:
+            item = q.get()
+            if item is None:
+                q.task_done()
+                return
+            try:
+                if self._errors[i] is None:  # fail-fast: skip after the first error
+                    out, _tracks = self.streams[i].submit_frame(*item)
+                    if out is not None:
+                        if self.on_result is not None:
+                            self.on_result(i, out)  # consumed: its tensors can go
+                        else:
+                            self.results[i].append(out)
+            except Exception as e:  # raised by the next submit_frame / flush
+                self._errors[i] = e
+            finally:
+                q.task_done()
+
+    def submit_frame(self, stream_idx: int, frame, background=None):
+        """One streaming step for camera ``stream_idx``; the contract of
+        ``TrackingStreamRunner.submit_frame``. Threaded mode: enqueue and return
+        ``(None, [])`` (results as the class docstring says)."""
+        if not self.threaded:
+            return self.streams[stream_idx].submit_frame(frame, background)
+        if self._errors[stream_idx] is not None:
+            raise self._errors[stream_idx]
+        self._queues[stream_idx].put((frame, background))
+        return None, []
+
+    def flush(self):
+        """Drain every stream; returns a list of per-stream result lists (threaded
+        mode: what the workers accumulated plus the final drain; with ``on_result``
+        the final drain goes there too and the lists are empty). The workers stay
+        alive for further submissions."""
+        if not self.threaded:
+            return [s.flush() for s in self.streams]
+        for q in self._queues:
+            q.join()  # barrier: every enqueued frame has been submitted
+        for err in self._errors:
+            if err is not None:
+                raise err
+        out = []
+        for i, s in enumerate(self.streams):
+            drained, self.results[i] = self.results[i], []
+            tail = s.flush()
+            if self.on_result is not None:
+                for r in tail:
+                    self.on_result(i, r)
+                out.append(drained)
+            else:
+                out.append(drained + tail)
+        return out
+
+    def close(self):
+        """Stop the worker threads (threaded mode; idempotent)."""
+        if not self.threaded:
+            return
+        for q in self._queues:
+            q.put(None)
+        for w in self._workers:
+            w.join(timeout=30)
+        self.threaded = False
+
+    @property
+    def aggregate_fps(self) -> float:
+        """Composited frames/s of all streams over ONE wall clock: the drained
+        scenes of every stream, from the earliest first submission to the latest
+        drain of any stream. This is what a user of the device gets."""
+        live = [s for s in self.streams if s._drained and s._t_last_drain is not None]
+        if not live:
+            return 0.0
+        frames = sum(s._drained * 2 * s.n_steps for s in live)
+        wall = max(s._t_last_drain for s in live) - min(s._t_first_submit or 0.0 for s in live)
+        return frames / max(wall, 1e-9)
+
+    @property
+    def aggregate_fps_per_stream_windows(self) -> float:
+        """The JAX package's ``aggregate_fps``: the sum over streams of each stream's
+        own ``throughput_fps`` (its own first submit -> last drain window). It equals
+        ``aggregate_fps`` only when all windows coincide and overstates it when
+        streams start or end at different times."""
+        return sum(s.throughput_fps for s in self.streams)

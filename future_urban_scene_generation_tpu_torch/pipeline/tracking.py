@@ -36,6 +36,15 @@ from future_urban_scene_generation_tpu_torch.geometry.gps import trajectory_to_m
 # ---------------------------------------------------------------------------
 
 
+@dataclass
+class PendingGrid:
+    """A detection in flight: the host copy of its cell grid, valid once ``event``
+    has fired."""
+
+    host: torch.Tensor
+    event: object
+
+
 class BackgroundDiffDetector:
     """Static-camera vehicle detector: device-side |frame - background| mask,
     host-side connected components on a downsampled grid.
@@ -53,16 +62,21 @@ class BackgroundDiffDetector:
         self.min_cells = max(1, int(min_area_px / (scale * scale)))
         self.max_boxes = int(max_boxes)
         self.background = background
+        self._host = [None, None]  # pinned grids of the pending detections
+        self._slot = 0
 
     @torch.no_grad()
-    def dispatch(self, frame: torch.Tensor) -> torch.Tensor:
-        """Enqueue the device mask pass; returns the bool cell grid, still on the
-        device, for :meth:`finalize`.
+    def dispatch(self, frame: torch.Tensor):
+        """Enqueue the device mask pass; returns a handle for :meth:`finalize`.
 
         Splitting dispatch from the host readback lets the streaming runner
         enqueue frame t's detection, then read frame t-1's: reading right after
         dispatching would wait behind everything ahead of it on the stream (the
-        previous scene)."""
+        previous scene). On a CUDA frame the handle is a :class:`PendingGrid`: the
+        bool grid is copied into pinned host memory right behind the mask pass and
+        an event is recorded behind the copy, so that the later read waits for this
+        detection alone and not for whatever was enqueued after it. On a CPU frame
+        the handle is the grid itself."""
         diff = (frame - self.background).abs().sum(dim=-1)
         # 3x3 box blur (zero border) knocks out single-pixel noise before thresholding.
         k = torch.full((1, 1, 3, 3), 1.0 / 9.0, dtype=diff.dtype, device=diff.device)
@@ -72,12 +86,33 @@ class BackgroundDiffDetector:
         s = self.scale
         grid = hit[: h - h % s, : w - w % s].reshape(h // s, s, w // s, s)
         # A cell counts when >= 25% of its pixels moved.
-        return grid.mean(dim=(1, 3)) >= 0.25
+        grid = grid.mean(dim=(1, 3)) >= 0.25
+        return self._stage(grid) if grid.is_cuda else grid
 
-    def finalize(self, grid_dev: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
-        """Copy a :meth:`dispatch` grid to the host (the one sync of a streamed
-        frame) and extract boxes (host union-find)."""
-        grid = grid_dev.cpu().numpy()
+    def _stage(self, grid: torch.Tensor) -> "PendingGrid":
+        """Copy ``grid`` to the host without blocking and record an event behind the
+        copy. Two host buffers alternate (the runner holds one detection pending
+        while it dispatches the next; pinned memory is allocated once, not per
+        frame): a handle must be finalized before the second dispatch after it."""
+        slot = self._slot
+        self._slot = 1 - slot
+        host = self._host[slot]
+        if host is None or host.shape != grid.shape:
+            host = torch.empty(grid.shape, dtype=grid.dtype, pin_memory=grid.is_cuda)
+            self._host[slot] = host
+        host.copy_(grid, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return PendingGrid(host, event)
+
+    def finalize(self, handle) -> Tuple[np.ndarray, np.ndarray]:
+        """Wait for one :meth:`dispatch` (its own event, nothing else on the stream),
+        read its grid on the host and extract boxes (host union-find)."""
+        if isinstance(handle, PendingGrid):
+            handle.event.synchronize()
+            grid = handle.host.numpy()
+        else:
+            grid = handle.cpu().numpy()
         boxes = _connected_component_boxes(grid, self.min_cells)
         s = float(self.scale)
         out = np.asarray(

@@ -28,6 +28,8 @@ def test_every_module_imports_without_jax():
         for p in PKG.rglob("*.py") if "_build" not in p.parts
     )
     assert len(modules) > 40 and f"{PKG.name}.cli.run_test" in modules
+    for new in ("gui.web", "gui.app", "cli.warmup", "ops.heatmap"):
+        assert f"{PKG.name}.{new}" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
@@ -36,7 +38,7 @@ def test_every_module_imports_without_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m == jax_pkg or m.startswith(jax_pkg + '.')]\n"
         "assert not bad, bad\n"
-        "for opt in ('yaml', 'cv2', 'PIL'):\n"
+        "for opt in ('yaml', 'cv2', 'PIL', 'PyQt5', 'matplotlib'):\n"
         "    assert opt not in sys.modules, opt\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -48,7 +50,8 @@ def test_every_module_imports_without_jax():
 
 @pytest.mark.parametrize("fn", [
     runner.build_cad_bank, synthetic.make_bench_scene, synthetic.oracle_perception,
-    stages.Models.build, training.ICNTrainer.init,
+    stages.Models.build, training.ICNTrainer.init, training.VunetTrainer.init,
+    training.HourglassTrainer.init, training.CadClassifierTrainer.init,
 ], ids=lambda f: f.__qualname__)
 def test_library_entry_points_require_a_device(fn):
     """No library entry point picks a device for its caller."""
@@ -57,11 +60,12 @@ def test_library_entry_points_require_a_device(fn):
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
-    from future_urban_scene_generation_tpu_torch.cli import run_test, train
+    from future_urban_scene_generation_tpu_torch.cli import run_test, train, warmup
     from future_urban_scene_generation_tpu_torch.config import PipelineConfig
 
     assert run_test.build_parser().get_default("device") == "cuda"
     assert train.build_parser().get_default("device") == "cuda"
+    assert warmup.build_parser().get_default("device") == "cuda"
     assert PipelineConfig().device == "cuda"
     assert inspect.signature(demo_synthetic.main).parameters["device"].default == "cuda"
     if torch.cuda.is_available():

@@ -174,8 +174,8 @@ def test_service_refuses_unported_parts_and_missing_card(dataset, tmp_path):
     (["--select-ids", "7", "--inpaint"], "S7"),
     (["--select-ids", "7", "--segmenter", "maskrcnn"], "S7"),
     (["--select-ids", "7", "--aot-dir", "somewhere"], "S10"),
-    (["--select-ids", "7", "--gui"], "S8"),
-    (["--select-ids", "7", "--web-gui"], "S8"),
+    (["--select-ids", "7", "--gui"], "GUI unavailable"),  # no PyQt5 here: the JAX line
+    (["--gui"], "use --select-ids for headless mode"),
 ])
 def test_cli_exits_2(dataset, capsys, flags, names):
     assert run_test.main([str(dataset), "x", "y", "--device", "cpu", *flags]) == 2
@@ -235,3 +235,121 @@ def test_cli_headless_end_to_end(dataset, tmp_path, monkeypatch):
         x0, y0, x1, y1 = (int(v) for v in bboxes[0])
         diff = (frames[0] - background).abs().amax(-1)[y0:y1, x0:x1]
         assert float(diff.max()) > 0.05
+
+
+def test_static_background_of_another_size_is_resized_bilinearly(dataset, tmp_path):
+    """A ``background_frame.png`` whose size differs from the working resolution is
+    decoded by the port's own reader and resized with ``resize_bilinear_np``, with
+    or without cv2 (a standing decision: the JAX service needs cv2 for this and
+    falls back to the frame without it)."""
+    from future_urban_scene_generation_tpu_torch.utils import video as video_io
+    from future_urban_scene_generation_tpu_torch.utils.native import write_png
+
+    rng = np.random.RandomState(3)
+    bg_u8 = rng.randint(0, 256, (H // 2 + 7, W // 2 + 3, 3)).astype(np.uint8)
+    path = dataset / "background_frame.png"
+    write_png(path, bg_u8)
+    try:
+        st = _PortHostService(_configs(dataset, tmp_path)[1])
+        assert tuple(st.frame_hw) == (H, W)
+        frame, background, _, _ = st.request_arguments(1, [7])
+        want = video_io.resize_bilinear_np(read_png(path).astype(np.float32) / 255.0, (H, W))
+        assert background.shape == frame.shape == (H, W, 3) and background.dtype == np.float32
+        np.testing.assert_array_equal(background, want)
+        assert 0.0 <= background.min() and background.max() <= 1.0
+        # bilinear, not nearest: away from the source's grid points a value lies
+        # strictly between its neighbours
+        assert not np.isin(np.round(background * 255.0, 3), np.arange(256.0)).all()
+    finally:
+        path.unlink()
+
+
+def test_cli_web_gui_and_gui_are_dispatched(dataset, tmp_path, monkeypatch):
+    """``--web-gui`` hands the config, host and port to ``launch_web_gui``; ``--gui``
+    hands the config to ``launch_gui``; neither needs ``--select-ids``."""
+    from future_urban_scene_generation_tpu_torch.gui import app as gui_app
+    from future_urban_scene_generation_tpu_torch.gui import web
+
+    calls = []
+    monkeypatch.setattr(web, "launch_web_gui",
+                        lambda cfg, host, port: calls.append(("web", cfg, host, port)))
+    monkeypatch.setattr(gui_app, "launch_gui", lambda cfg: calls.append(("qt", cfg)) or 0)
+    base = [str(dataset), "x", "y", "--device", "cpu", "--frame-id", "3"]
+    assert run_test.main([*base, "--web-gui", "--host", "0.0.0.0", "--port", "8123"]) is None
+    assert run_test.main([*base, "--gui"]) == 0
+    (kind, cfg, host, port), (kind2, cfg2) = calls
+    assert (kind, host, port, kind2) == ("web", "0.0.0.0", 8123, "qt")
+    assert cfg.frame_id == cfg2.frame_id == 3 and cfg.device == "cpu"
+    assert str(cfg.video_dir) == str(dataset)
+
+
+def test_web_gui_serves_a_real_service(dataset, tmp_path, monkeypatch):
+    """``make_server`` over a real ``SceneService`` on the dataset: boxes from its
+    tracking file, a frame from its reader, and RUN through ``run_request`` (the
+    scene itself replaced by the background, as a fake program)."""
+    import json
+    import threading
+    import urllib.request
+
+    from future_urban_scene_generation_tpu_torch.gui import web
+    from future_urban_scene_generation_tpu_torch.utils.native import decode_png
+
+    def program(self, scene_args):
+        def run(models, bank, frame, background, bboxes, meters, k):
+            stack = background[None].expand(6, -1, -1, -1)
+            return runner.SceneResult(stack, stack, torch.zeros(len(bboxes)),
+                                      torch.zeros(len(bboxes), dtype=torch.long))
+        return run
+
+    monkeypatch.setattr(_PortHostService, "_scene_program", program)
+    cfg = _configs(dataset, tmp_path)[1]
+    svc = _PortHostService(cfg)
+    srv = web.make_server(cfg, port=0, service=svc)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        boxes = json.loads(urllib.request.urlopen(base + "/boxes/1", timeout=10).read())
+        assert {b["id"] for b in boxes} == {7, 9}
+        png = urllib.request.urlopen(base + "/frame/1.png?preview=7&selected=7", timeout=10).read()
+        assert decode_png(png).shape == (H, W, 3)
+        req = urllib.request.Request(base + "/run", method="POST",
+                                     data=json.dumps({"frame_id": 1, "ids": [7]}).encode())
+        out = json.loads(urllib.request.urlopen(req, timeout=60).read())
+        assert len(out["outputs"]) == 12
+        got = decode_png(urllib.request.urlopen(base + "/results/0.png", timeout=10).read())
+        want = (svc.reader.read(1) * 255.0).clip(0, 255).astype(np.uint8)
+        np.testing.assert_array_equal(got, want)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=5)
+        svc.close()
+
+
+def test_warmup_cli_on_cpu(capsys):
+    """``cli.warmup --device cpu`` at the tiny shape of tests/test_service_cli.py:147
+    (96x128, V=1, 2 steps, f32, warp 64), in process: one line per bucket with a cold
+    and a warm time; ``--cache-dir`` is ignored with a line; ``--export-aot`` and a
+    missing card are refused. (``--perception`` swaps in ``run_scene``, which the
+    pipeline tests hold; the on-card script drives that flag.)"""
+    from future_urban_scene_generation_tpu_torch.cli import warmup
+
+    tiny = ["--frame-hw", "96", "128", "--vehicles", "1", "--steps", "2",
+            "--generator-dtype", "float32", "--warp-plane-res", "64"]
+    assert warmup.main([*tiny, "--device", "cpu", "--cache-dir", "somewhere"]) == 0
+    out, err = capsys.readouterr()
+    assert "--cache-dir is ignored" in err
+    lines = [ln for ln in out.splitlines() if ln.startswith("warmed V=1 (96x128, steps=2, "
+                                                            "float32, warp=64, synthesize_scene)")]
+    assert len(lines) == 1 and " cold " in lines[0] and " warm " in lines[0]
+    assert "BUILD_SECONDS" not in out  # nothing to build for the CPU
+    assert warmup.main([*tiny, "--export-aot", "d"]) == 2
+    assert "S10" in capsys.readouterr().err
+    p = warmup.build_parser()
+    assert (p.get_default("device"), p.get_default("generator_dtype"),
+            p.get_default("warp_plane_res"), p.get_default("perception")) == (
+                "cuda", "bfloat16", 128, False)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            warmup.main(tiny)

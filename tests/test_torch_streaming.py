@@ -162,3 +162,27 @@ def test_tracking_stream_runner_moving_box(assets):
     frame[60:85, 30:65] = 0.9
     out, tracks = aligned.submit_frame(frame)
     assert len(tracks) == 1 and out is None  # one point of history: no trajectory yet
+
+
+def test_tracking_stream_runner_detector_and_confirmed_are_optional(assets):
+    """As the JAX runner: ``detector`` defaults to None, and a tracker without
+    ``confirmed()`` gives an empty track list on the first overlapped frame."""
+
+    class BareTracker:
+        def update(self, boxes):
+            return []
+
+    class SplitDetector:
+        def dispatch(self, frame):
+            return frame
+
+        def finalize(self, handle):
+            return np.zeros((0, 4), np.float32), np.zeros((0,), np.float32)
+
+    stream = _stream(assets, cls=streaming.TrackingStreamRunner, depth=1)
+    assert stream.detector is None
+    stream = _stream(assets, cls=streaming.TrackingStreamRunner, depth=1,
+                     detector=SplitDetector(), tracker=BareTracker())
+    frame = np.zeros((H, W, 3), np.float32)
+    assert stream.submit_frame(frame) == (None, [])
+    assert stream.submit_frame(frame) == (None, [])

@@ -141,3 +141,59 @@ def test_predict_future_meters_matches_jax_package():
     assert got.shape == (5, 2) and np.isfinite(got).all()
     np.testing.assert_allclose(got, ref, rtol=1e-9, atol=0)
     assert (np.linalg.norm(np.diff(got, axis=0), axis=1) > 0).all()
+
+
+class _FakeEvent:
+    """Stands in for torch.cuda.Event on the CPU: counts what is asked of it."""
+
+    made = []
+
+    def __init__(self):
+        self.recorded = 0
+        self.waited = 0
+        _FakeEvent.made.append(self)
+
+    def record(self):
+        self.recorded += 1
+
+    def synchronize(self):
+        self.waited += 1
+
+
+def test_finalize_waits_on_its_own_event_only(monkeypatch):
+    """On a CUDA frame ``dispatch`` stages the grid into host memory behind an event
+    (``_stage``; driven here on a CPU grid with a fake event), and ``finalize`` waits
+    on that handle's event and on nothing else: no device-wide sync, no ``.cpu()``
+    copy enqueued behind later work, no wait on another detection's event."""
+    h, w, s = 96, 128, 4
+    bg = np.zeros((h, w, 3), np.float32) + 0.05
+    frame = bg + _frame_with_boxes(h, w, [[20, 30, 60, 70]], value=0.9)
+    det = trk.BackgroundDiffDetector(torch.as_tensor(bg), scale=s, min_area_px=100)
+    grid = det.dispatch(torch.as_tensor(frame))
+    assert isinstance(grid, torch.Tensor)  # CPU handles are the grid, as before
+
+    _FakeEvent.made.clear()
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+
+    def no_device_sync(*a, **k):
+        raise AssertionError("finalize drained the device")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", no_device_sync)
+    monkeypatch.setattr(torch.Tensor, "cpu", no_device_sync)
+    first = det._stage(grid)
+    second = det._stage(torch.zeros_like(grid))
+    assert isinstance(first, trk.PendingGrid) and first.event is not second.event
+    assert [e.recorded for e in _FakeEvent.made] == [1, 1]
+    boxes, scores = det.finalize(first)
+    assert (first.event.waited, second.event.waited) == (1, 0)
+    monkeypatch.undo()
+    ref_boxes, ref_scores = det.finalize(grid)
+    np.testing.assert_array_equal(boxes, ref_boxes)
+    np.testing.assert_array_equal(scores, ref_scores)
+    assert len(boxes) == 1
+
+    # Two host buffers alternate: the third detection reuses the first one's.
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    third = det._stage(grid)
+    assert third.host.data_ptr() == first.host.data_ptr() != second.host.data_ptr()
+    assert len(det.finalize(second)[0]) == 0

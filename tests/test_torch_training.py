@@ -266,7 +266,7 @@ def test_cli_trains_resumes_and_refuses_unported(tmp_path, capsys):
     assert steps == [0, 1]  # the resumed run picked up at iteration 1
     recs = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
     assert all(np.isfinite([r["l_d"], r["l_g"], r["l_l1"]]).all() for r in recs)
-    for argv in (["--model", "vunet", "--device", "cpu"],
+    for argv in (["--model", "edge", "--device", "cpu"],
                  ["--model", "icn", "--device", "cpu", "--image-size", "128"]):
         with pytest.raises(SystemExit) as exc:
             cli_train.main(argv)
