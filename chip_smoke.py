@@ -9,7 +9,12 @@ synthetic demo (360x640), ``cli.run_test`` on a CityFlow-shaped directory it wri
 over 1, 2 and 4 cameras (threaded and not), ``cli.warmup`` in a fresh process and the
 web GUI's server over one ``SceneService``. The train phase also trains the VUNet,
 the hourglass and the CAD classifier at full width (``cli.train``, timed loops, one
-step on the card against the CPU, the train-mode batch norm's backward).
+step on the card against the CPU, the train-mode batch norm's backward). The inpaint
+and maskrcnn phases drive the inpaint branch: ``cli.run_test --inpaint`` with the
+background-difference segmenter and with ``--segmenter maskrcnn``, from seeded
+full-width EdgeConnect and Mask R-CNN files in the reference's layouts (written, and
+read back, with PyYAML blocked), with kernel N1 (Mask R-CNN's NMS) against its plain
+version and ``TrackingStreamRunner`` with ``MaskRCNNDetector``.
 
     python3 chip_smoke.py                    # every phase, one GPU
     python3 chip_smoke.py --phases k3,train  # a subset (device and build always run)
@@ -22,7 +27,9 @@ profiled call must show those two kernels on the device and nothing else.
 
 Kernel launches in the ``kernels`` line, each counted over its own path with the
 counters set to 0 just before: K1 and K2 from the main phase's scenes, K3 from the
-train phase's CLI run, K1' from the demo; K4's entry has no caller on any path.
+train phase's CLI run, K1' from the demo, N1 from the maskrcnn phase's CLI request (N1
+ports no TPU kernel: the JAX package's NMS is a ``lax.scan``); K4's entry has no caller
+on any path.
 ``bound_ms`` is the larger of bytes over 3.35 TB/s and operations over the card's
 peak for the kernel's type (the H100 SXM's published 67 TFLOP/s float32, 989 TFLOP/s
 bf16), from this run's inputs (the raster's operations are counted from the bboxes of
@@ -50,7 +57,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 ALL_PHASES = ("k1", "k2", "k3", "gpu_vs_cpu", "main", "train", "demo", "serve", "stream",
-              "multi", "warmup", "web")
+              "multi", "warmup", "web", "inpaint", "maskrcnn")
 # Published peaks of one H100 SXM: device memory bytes/s, float32 FLOP/s outside the
 # tensor cores, dense bf16 FLOP/s.
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -1886,6 +1893,452 @@ def phase_web(device, card, ctx):
     shutil.rmtree(svc.cfg.output_dir, ignore_errors=True)
 
 
+# --- The inpaint branch (S7): EdgeConnect erase, Mask R-CNN, kernel N1 ---------------
+EDGE_SIGMA = 2  # written into inpainting/config.yml, read back by cli.run_test (F3)
+CANNY_BUDGET = 0.002  # tests/test_crop_canny_morph.py:166
+GEN_TOL = 2e-3  # tests/test_edgeconnect.py:30
+GPU_CPU_REL_L2 = 5e-2  # the standing GPU-vs-CPU bar (ROADMAP.md); float64 at 1e-6 max|ref|
+MASKRCNN_INPUT_HW = (512, 1024)
+MASKRCNN_FRAMES = 8  # TrackingStreamRunner frames with the Mask R-CNN detector
+N1_BOXES = 1000
+
+
+def _sn_triple(w: torch.Tensor, dim: int, gen: torch.Generator):
+    """(weight_orig, weight_u, weight_v) whose spectral-norm fold is w / sigma, sigma =
+    |W_mat^T u| (u random, v along W_mat^T u): a reference-layout checkpoint entry."""
+    w_mat = w.movedim(dim, 0).reshape(w.shape[dim], -1)
+    u = torch.randn(w.shape[dim], generator=gen, dtype=torch.float64)
+    u /= u.norm()
+    v = w_mat.double().T @ u
+    v /= v.norm()
+    return w, u.float(), v.float()
+
+
+def _write_edgeconnect_zoo(ckpt):
+    """Seeded full-width EdgeConnect generators in the reference's layout under
+    ``ckpt/inpainting/``: the edge generator with spectral-norm (weight_orig, u, v)
+    triples on every conv but the last, both wrapped as {"iteration", "generator"},
+    and a config.yml with SIGMA (written as text; PyYAML is blocked in this process)."""
+    from future_urban_scene_generation_tpu_torch.models import edgeconnect
+    from future_urban_scene_generation_tpu_torch.pipeline import checkpoint
+
+    gen = torch.Generator().manual_seed(7)
+    edge, inp = edgeconnect.build_generators(gen, device="cpu")
+    for name, net in (("edge", edge), ("inpaint", inp)):
+        sd = {}
+        for key, val in net.state_dict().items():
+            if name == "edge" and key.endswith(".weight") and val.dim() == 4 and (
+                    key != "decoder.7.weight"):
+                prefix = key[: -len("weight")]
+                dim = 1 if key.startswith(("decoder.0.", "decoder.3.")) else 0
+                (sd[prefix + "weight_orig"], sd[prefix + "weight_u"],
+                 sd[prefix + "weight_v"]) = _sn_triple(val, dim, gen)
+            else:
+                sd[key] = val
+        path = checkpoint.zoo_path(ckpt, name)
+        os.makedirs(path.parent, exist_ok=True)
+        torch.save({"iteration": 0, "generator": sd}, path)
+    with open(os.path.join(ckpt, "inpainting", "config.yml"), "w") as f:
+        f.write(f"MODE: 1             # edgeconnect/config.yml's keys\nMODEL: 3\n"
+                f"SIGMA: {EDGE_SIGMA}            # Canny's sigma\nMAX_ITERS: 2e6\n")
+
+
+def _write_maskrcnn_zoo(ckpt):
+    """Seeded full-width Mask R-CNN (ResNet-50-FPN, 91 classes) as
+    ``ckpt/maskrcnn/maskrcnn.pth`` = {"model": state dict} under torchvision's names,
+    half of the FPN convs, the RPN head's conv and half the mask head under newer
+    torchvision's Conv2dNormActivation names, and a config.yml sidecar. The class
+    bias of COCO 3 (car) is raised so that random weights still detect "cars"."""
+    from future_urban_scene_generation_tpu_torch.models.maskrcnn import MaskRCNN
+
+    model = MaskRCNN.build(torch.Generator().manual_seed(11), device="cpu")
+    sd = model.state_dict()
+    sd["roi_heads.box_predictor.cls_score.bias"][3] = 6.0
+    out = {}
+    for k, v in sd.items():
+        for i in (0, 2):
+            for blk in ("inner_blocks", "layer_blocks"):
+                k = k.replace(f"fpn.{blk}.{i}.", f"fpn.{blk}.{i}.0.")
+        k = k.replace("rpn.head.conv.", "rpn.head.conv.0.0.")
+        for i in (1, 3):
+            k = k.replace(f"mask_head.mask_fcn{i}.", f"mask_head.{i - 1}.0.")
+        out[k] = v
+    path = os.path.join(ckpt, "maskrcnn", "maskrcnn.pth")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({"model": out}, path)
+    ih, iw = MASKRCNN_INPUT_HW
+    with open(os.path.join(ckpt, "maskrcnn", "config.yml"), "w") as f:
+        f.write(f"num_classes: 91\nlayers: [3, 4, 6, 3]\ninput_hw: [{ih}, {iw}]\n"
+                f"classes: [3, 6, 8]   # car, bus, truck\nmin_iou: 0.05\n")
+
+
+def _cli_request(device, ctx, ckpt, label, extra, card):
+    """``cli.run_test`` with ``extra`` flags on the phases' directory: (exit code, PNG
+    count, launches, seconds, output directory)."""
+    import contextlib
+    import io
+
+    from future_urban_scene_generation_tpu_torch.cli import run_test
+    from future_urban_scene_generation_tpu_torch.ops import cuda_conv, cuda_raster, detection
+
+    out = os.path.join(ctx["root"], f"results_{label}")
+    argv = [ctx["video_dir"], os.path.join(ctx["root"], "no_kpoints"), ckpt, *extra,
+            "--select-ids", *(str(i) for i in SERVE_IDS), "--frame-id", "1", "--device", device,
+            "--frame-hw", *(str(n) for n in SERVE_HW), "--output-dir", out]
+    cuda_raster.LAUNCHES = cuda_conv.LAUNCHES = detection.NMS_LAUNCHES = 0
+    said = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(said):
+        rc = run_test.main(argv)
+    secs = time.perf_counter() - t0
+    launches = {"raster": cuda_raster.LAUNCHES, "icn_stem_conv": cuda_conv.LAUNCHES,
+                "nms_static": detection.NMS_LAUNCHES}
+    n_png = sum(len(fs) for _, _, fs in os.walk(out))
+    took = [ln for ln in said.getvalue().splitlines() if ln.startswith("Prediction of")]
+    log(f"{label}[cli]: exit {rc} in {secs:.2f} s (service built and one request); the service "
+        f"said: {took}; {n_png} PNGs; launches in the request {launches} ({card})")
+    if rc != 0 or n_png != 12 or launches["raster"] != 1 or launches["icn_stem_conv"] != 1:
+        raise AssertionError(f"{label}[cli]: rc {rc}, {n_png} PNGs, launches {launches}")
+    return launches, out
+
+
+def _inpaint_service(device, ctx, ckpt, segmenter):
+    from future_urban_scene_generation_tpu_torch.config import PipelineConfig
+    from future_urban_scene_generation_tpu_torch.pipeline import service
+
+    cfg = PipelineConfig(
+        video_dir=ctx["video_dir"], kpoints_dir=os.path.join(ctx["root"], "no_kpoints"),
+        checkpoints_dir=ckpt, device=device, inpaint=True, segmenter=segmenter,
+        output_dir=os.path.join(ctx["root"], f"results_service_{segmenter}"))
+    cfg.runtime.frame_hw = SERVE_HW
+    cfg.load_edgeconnect_yaml()
+    return service.SceneService(cfg)
+
+
+def _request_parts(svc, device, label, card):
+    """One warm request through ``svc``, its parts timed: host arguments with the
+    segmenter and the erase (the background stack), upload + scene, readback, PNGs."""
+    from future_urban_scene_generation_tpu_torch.pipeline import runner, service
+
+    svc.request_arguments(1, list(SERVE_IDS))  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frame, background, bboxes, meters = svc.request_arguments(1, list(SERVE_IDS))
+    torch.cuda.synchronize()
+    t_args = time.perf_counter() - t0
+    up = lambda a: torch.as_tensor(a).to(device)  # noqa: E731
+    t0 = time.perf_counter()
+    res = runner.run_scene(svc.models, svc.cad_bank, up(frame), background, up(bboxes),
+                           up(meters), up(svc.intrinsic), spec=svc.spec,
+                           vis_res=svc.cfg.runtime.vis_res)
+    torch.cuda.synchronize()
+    t_scene = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    icn = service.frames_to_uint8(res.frames_icn).cpu().numpy()
+    vun = service.frames_to_uint8(res.frames_vunet).cpu().numpy()
+    t_read = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    svc._write_outputs(1, icn, vun)
+    t_png = time.perf_counter() - t0
+    log(f"{label}: one warm request's parts: host arguments + segment + erase (6 frames "
+        f"{SERVE_HW[0]}x{SERVE_HW[1]}, V=4) {t_args * 1e3:.1f} ms; upload + scene "
+        f"{t_scene * 1e3:.1f} ms; readback {t_read * 1e3:.1f} ms; 12 PNGs {t_png * 1e3:.1f} ms "
+        f"({card})")
+    if not (bool(torch.isfinite(res.frames_icn).all()) and background.shape == (6, *SERVE_HW, 3)):
+        raise AssertionError(f"{label}: non-finite frames or a background stack of shape "
+                             f"{tuple(background.shape)}")
+    return frame, background, bboxes
+
+
+def _erased_only_in_windows(svc, background, bboxes, label):
+    """The background stack differs from the future frames only inside the vehicles'
+    context windows, and inside every window somewhere."""
+    from future_urban_scene_generation_tpu_torch.pipeline import inpaint
+
+    bg = background.cpu().numpy()
+    inside = np.zeros(SERVE_HW, bool)
+    for b in bboxes:
+        if inpaint.window_is_empty(b, SERVE_HW):
+            continue
+        w = inpaint.context_window(torch.as_tensor(b), SERVE_HW)
+        x0, y0 = int(w.x_start), int(w.y_start)
+        inside[y0:y0 + int(w.h), x0:x0 + int(w.w)] = True
+    changed_share = []
+    for n in range(6):
+        frame = svc.reader.read(1 + 2 * n)
+        diff = np.abs(bg[n] - frame).max(-1) > 0
+        if diff[~inside].any():
+            raise AssertionError(f"{label}: step {n} changed pixels outside the context windows")
+        changed_share.append(round(float(diff[inside].mean()), 3))
+    log(f"{label}: background stack {bg.shape}: pixels changed only inside the context "
+        f"windows; share changed inside, per step {changed_share}")
+    if min(changed_share) <= 0:
+        raise AssertionError(f"{label}: a step's windows were left unchanged")
+
+
+def _erase_card_vs_cpu(svc, frame, background, bboxes, device, label):
+    """One vehicle's erase on the card against the CPU: Canny maps, then the generators
+    with the CPU's inputs (edge map included) handed to both."""
+    import copy
+
+    from future_urban_scene_generation_tpu_torch.models.detector import BackgroundDiffSegmenter
+    from future_urban_scene_generation_tpu_torch.pipeline import inpaint
+
+    frame_d = torch.as_tensor(frame).to(device)[None]
+    bbox = torch.as_tensor(bboxes[0])
+    seg = svc.segmenter or BackgroundDiffSegmenter(svc._static_background(), device=device)
+    with torch.no_grad():
+        if hasattr(seg, "masks_for_bboxes"):
+            mask = seg.masks_for_bboxes(frame_d[0], bbox[None].to(device))[0][None]
+        else:
+            mask = seg.masks(frame_d, bbox[None].to(device))[:, 0]
+    sigma = float(svc.cfg.edgeconnect.sigma)
+    ins_card = inpaint.erase_inputs(frame_d, bbox, mask, sigma)
+    ins_cpu = inpaint.erase_inputs(frame_d.cpu(), bbox, mask.cpu(), sigma)
+    disagree = (ins_card.edge.cpu() != ins_cpu.edge).float().mean().item()
+    nets_cpu = [copy.deepcopy(n).cpu() for n in svc.inpaint_models]
+    to_dev = ins_cpu._replace(window=ins_cpu.window.map(lambda f: f.to(device)),
+                              **{k: getattr(ins_cpu, k).to(device)
+                                 for k in ("img", "mask", "gray", "edge")})
+    got = inpaint.erase_from_inputs(*svc.inpaint_models, frame_d, to_dev)
+    want = inpaint.erase_from_inputs(*nets_cpu, frame_d.cpu(), ins_cpu)
+    err = (got.cpu() - want).abs().max().item()
+    log(f"{label}: one vehicle's erase, card against CPU: Canny maps disagree on "
+        f"{disagree:.2e} of the pixels (budget {CANNY_BUDGET}); the generators and paste with "
+        f"the CPU's edge map handed to both: max abs {err:.2e} (tolerance {GEN_TOL}; mask "
+        f"pixels {int(ins_cpu.mask.sum())})")
+    if disagree >= CANNY_BUDGET or err >= GEN_TOL:
+        raise AssertionError(f"{label}: the card's erase disagrees with the CPU's")
+
+
+def phase_inpaint(device, card, ctx):
+    """``cli.run_test --inpaint`` at 720x1280 with the four vehicles, EdgeConnect from
+    a reference-layout zoo (seeded, full width: 8 blocks, 256^2 crops) and the
+    background-difference segmenter; the request's parts; the stack against the
+    frames; one erase on the card against the CPU; the erase's device time."""
+    from future_urban_scene_generation_tpu_torch.models.detector import BackgroundDiffSegmenter
+    from future_urban_scene_generation_tpu_torch.pipeline import inpaint
+
+    sys.modules["yaml"] = None  # the inpaint branch reads its YAML without PyYAML (F7)
+    _serving_setup(device, ctx)
+    ckpt = os.path.join(ctx["root"], "ckpt_inpaint")
+    _write_edgeconnect_zoo(ckpt)
+    launches, out = _cli_request(device, ctx, ckpt, "inpaint", ["--inpaint"], card)
+    shutil.rmtree(out)
+
+    svc = _inpaint_service(device, ctx, ckpt, "background")
+    if svc.cfg.edgeconnect.sigma != EDGE_SIGMA:
+        raise AssertionError(f"inpaint: SIGMA {svc.cfg.edgeconnect.sigma} read from config.yml")
+    frame, background, bboxes = _request_parts(svc, device, "inpaint", card)
+    _erased_only_in_windows(svc, background, bboxes, "inpaint")
+    _erase_card_vs_cpu(svc, frame, background, bboxes, device, "inpaint")
+
+    frames_d = torch.as_tensor(np.stack([svc.reader.read(1 + 2 * n) for n in range(6)])).to(device)
+    seg = BackgroundDiffSegmenter(svc._static_background(), device=device)
+    with torch.no_grad():
+        masks = seg.masks(frames_d, torch.as_tensor(bboxes).to(device))
+    erase_ms = cuda_ms(lambda: inpaint.erase_vehicles(*svc.inpaint_models, frames_d, bboxes,
+                                                      masks, sigma=float(EDGE_SIGMA)), iters=3)
+    flop = 2 * 6 * 4 * sum(_conv_flop(n) for n in svc.inpaint_models)
+    log(f"inpaint: erase of V=4 vehicles on 6 frames (8 generator calls of batch 6): "
+        f"{erase_ms:.1f} ms by CUDA events; the generators' float32 work {flop / 1e12:.2f} TFLOP, "
+        f"bound {flop / PEAK_F32 * 1e3:.1f} ms at the published 67 TFLOP/s ({card})")
+    svc.close()
+    shutil.rmtree(svc.cfg.output_dir, ignore_errors=True)
+    shutil.rmtree(ckpt)
+    log(f"inpaint: launches in the CLI's request: K1 {launches['raster']}, K2 "
+        f"{launches['icn_stem_conv']}")
+
+
+def _conv_flop(net) -> float:
+    """Multiply-adds of one 256^2 pass of an EdgeConnect generator (convs only)."""
+    from future_urban_scene_generation_tpu_torch.models import layers
+
+    total, hw = 0.0, {"encoder.1": 256, "encoder.4": 128, "encoder.7": 64, "decoder.0": 64,
+                      "decoder.3": 128, "decoder.7": 256}
+    for name, m in net.named_modules():
+        if isinstance(m, (layers.Conv2d, layers.ConvTranspose2d)):
+            side = hw.get(name, 64)  # every middle block runs at 64^2
+            total += side * side * m.weight.numel()
+    return total
+
+
+def _n1_check(device, card):
+    """Kernel N1 against its plain version on the card's tensors: 1,000 boxes with
+    tied scores (and the -1 scores of invalid entries), at the RPN's and the class
+    NMS's thresholds; indices must be equal. Then its times."""
+    from future_urban_scene_generation_tpu_torch.ops import detection
+
+    gen = torch.Generator().manual_seed(3)
+    n = N1_BOXES
+    ctr = torch.rand(n, 2, generator=gen) * 800
+    size = torch.rand(n, 2, generator=gen) * 120 + 8
+    boxes = torch.cat([ctr - size / 2, ctr + size / 2], 1)
+    boxes[1::5] = boxes[0::5][: boxes[1::5].shape[0]]  # duplicate boxes with tied scores
+    scores = torch.round(torch.rand(n, generator=gen) * 16) / 16
+    scores[torch.rand(n, generator=gen) < 0.2] = -1.0
+    boxes, scores = boxes.to(device), scores.to(device)
+    mismatched = 0
+    for iou, thr, max_out in ((0.7, -0.5, n), (0.5, -0.5, 100), (0.5, 0.3, 50)):
+        got, _ = detection.nms_static(boxes, scores, iou, thr, max_out)
+        want = detection.nms_plain(boxes, scores, iou, thr, max_out)
+        torch.cuda.synchronize()
+        mismatched += int((got != want).sum())
+        log(f"n1[{n} boxes, iou {iou}, score > {thr}, max {max_out}]: {int((want >= 0).sum())} "
+            f"kept; indices equal to the plain version: {bool(torch.equal(got, want))}")
+    if mismatched:
+        raise AssertionError(f"kernel N1 disagrees with its plain version ({mismatched} indices)")
+    ms = cuda_ms(lambda: detection.nms_static(boxes, scores, 0.7, -0.5, n), iters=20, warmup=3)
+
+    def plain():
+        detection.nms_plain(boxes, scores, 0.7, -0.5, n)
+        torch.cuda.synchronize()
+
+    plain()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        plain()
+    plain_ms = (time.perf_counter() - t0) / 3 * 1e3
+    # Each input read once (boxes, scores), the indices written once; n^2 / 2 IoUs of
+    # about 12 float32 operations.
+    bound, by = bound_ms(nbytes(boxes, scores) + 8 * n, 12.0 * n * n / 2, PEAK_F32)
+    log(f"n1 time at the RPN's shape ({n} boxes): N1 {ms:.4f} ms (sort, two launches); plain "
+        f"version (IoU matrix on the card, the greedy loop on the host) {plain_ms:.3f} ms; "
+        f"bound {bound:.5f} ms by {by}; no library call in PyTorch ({card})")
+    return dict(name="nms_static", route="cuda",
+                source="future_urban_scene_generation_tpu_torch/csrc/nms.cu",
+                replaces="none: not a TPU kernel port (the JAX nms_static, "
+                         "future_urban_scene_generation_tpu/ops/detection.py:45, is a lax.scan)",
+                max_abs_err=float(mismatched), ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None)
+
+
+def _rel_l2(a, b) -> float:
+    return float((a.double() - b.double()).norm() / max(b.double().norm(), 1e-30))
+
+
+def _maskrcnn_card_vs_cpu(model, frame, device, card):
+    """Backbone, RPN and head tensors of one frame on the card against the CPU:
+    float32 (relative L2 per tensor) and float64 (max abs against 1e-6 max|ref|)."""
+    import copy
+
+    from future_urban_scene_generation_tpu_torch.ops.resize import resize_bilinear
+
+    img = resize_bilinear(torch.as_tensor(frame).to(device), MASKRCNN_INPUT_HW)
+    pooled = torch.rand(64, 7, 7, 256, generator=torch.Generator().manual_seed(1))
+    mpooled = torch.rand(16, 14, 14, 256, generator=torch.Generator().manual_seed(2))
+
+    def tensors(net, dev, dtype):
+        x = ((img.to(dev, dtype) - net.image_mean.to(dtype)) / net.image_std.to(dtype))[None]
+        with torch.no_grad():
+            feats = net.features(x)
+            logits, deltas = net.rpn_head(feats)
+            box = net.box_heads(pooled.to(dev, dtype))
+            mask = net.mask_heads(mpooled.to(dev, dtype))
+        return [*feats, *logits, *deltas, *box, mask]
+
+    worst32 = 0.0
+    cpu32 = copy.deepcopy(model).cpu()
+    pairs = zip(tensors(model, device, torch.float32), tensors(cpu32, "cpu", torch.float32))
+    for got, want in pairs:
+        worst32 = max(worst32, _rel_l2(got.cpu(), want))
+    del cpu32
+    card64 = copy.deepcopy(model).double()
+    cpu64 = copy.deepcopy(model).cpu().double()
+    worst64 = 0.0
+    pairs = zip(tensors(card64, device, torch.float64), tensors(cpu64, "cpu", torch.float64))
+    for got, want in pairs:
+        worst64 = max(worst64, (got.cpu() - want).abs().max().item() / want.abs().max().item())
+    del card64, cpu64
+    log(f"maskrcnn: card against CPU on one {MASKRCNN_INPUT_HW[0]}x{MASKRCNN_INPUT_HW[1]} frame "
+        f"(5 FPN levels, RPN logits and deltas, box and mask heads): float32 worst relative L2 "
+        f"{worst32:.2e} (bar {GPU_CPU_REL_L2}); float64 worst max abs {worst64:.2e} of max|ref| "
+        f"(bar 1e-6) ({card})")
+    if worst32 > GPU_CPU_REL_L2 or worst64 > 1e-6:
+        raise AssertionError("maskrcnn: the card's network disagrees with the CPU's")
+
+
+def phase_maskrcnn(device, card, ctx):
+    """Kernel N1 against its plain version; ``cli.run_test --inpaint --segmenter
+    maskrcnn`` at 720x1280, V=4, with a seeded full-width ResNet-50-FPN (91 classes)
+    from the zoo; the detector's time per frame; ``TrackingStreamRunner`` with
+    ``MaskRCNNDetector`` over 8 frames; the network on the card against the CPU.
+    Returns (N1's record, its launches in the CLI's request)."""
+    from future_urban_scene_generation_tpu_torch.models.maskrcnn import maskrcnn_infer
+    from future_urban_scene_generation_tpu_torch.ops import detection
+    from future_urban_scene_generation_tpu_torch.ops.resize import resize_bilinear
+    from future_urban_scene_generation_tpu_torch.pipeline import streaming
+    from future_urban_scene_generation_tpu_torch.pipeline import tracking as trk
+
+    sys.modules["yaml"] = None  # the sidecar and config.yml are read without PyYAML (F7)
+    record = _n1_check(device, card)
+    _serving_setup(device, ctx)
+    ckpt = os.path.join(ctx["root"], "ckpt_maskrcnn")
+    _write_edgeconnect_zoo(ckpt)
+    _write_maskrcnn_zoo(ckpt)
+    launches, out = _cli_request(device, ctx, ckpt, "maskrcnn",
+                                 ["--inpaint", "--segmenter", "maskrcnn"], card)
+    shutil.rmtree(out)
+    if launches["nms_static"] != 6 * 6:
+        raise AssertionError(f"maskrcnn: {launches['nms_static']} N1 launches, not 6 frames x 6")
+
+    svc = _inpaint_service(device, ctx, ckpt, "maskrcnn")
+    frame, background, bboxes = _request_parts(svc, device, "maskrcnn", card)
+    _erased_only_in_windows(svc, background, bboxes, "maskrcnn")
+    seg = svc.segmenter
+    frame_d = torch.as_tensor(frame).to(device)
+    with torch.no_grad():
+        masks = seg.masks_for_bboxes(frame_d, torch.as_tensor(bboxes).to(device))
+        det = seg.detect(frame_d)
+    log(f"maskrcnn: frame 1: {int(det.valid.sum())} detections, labels "
+        f"{sorted(set(det.labels[det.valid].tolist()))}; mask pixels per vehicle "
+        f"{[int(m.sum()) for m in masks]}")
+    infer_ms = cuda_ms(lambda: maskrcnn_infer(seg.model, resize_bilinear(frame_d, seg.input_hw)),
+                       iters=5, warmup=1)
+    rng = torch.Generator().manual_seed(5)
+    b_rpn = torch.rand(1000, 4, generator=rng).to(device).sort(-1).values * 500
+    s_rpn = torch.rand(1000, generator=rng).to(device)
+    nms_rpn = cuda_ms(lambda: detection.nms_static(b_rpn, s_rpn, 0.7, -0.5, 1000), iters=20)
+    nms_cls = cuda_ms(lambda: detection.nms_static(b_rpn, s_rpn, 0.5, -0.5, 100), iters=20)
+    log(f"maskrcnn: detector (resize + maskrcnn_infer, {MASKRCNN_INPUT_HW[0]}x"
+        f"{MASKRCNN_INPUT_HW[1]}) {infer_ms:.2f} ms a frame by CUDA events; N1 at the path's "
+        f"shapes: {nms_rpn:.4f} ms (RPN level, 1,000 boxes, IoU 0.7), {nms_cls:.4f} ms (classes, "
+        f"1,000 candidates, 100 out), about {5 * nms_rpn + nms_cls:.3f} ms of the frame ({card})")
+    _maskrcnn_card_vs_cpu(seg.model, frame, device, card)
+
+    detector = trk.MaskRCNNDetector(seg.model, input_hw=seg.input_hw, device=device)
+    frames_u8 = ctx["frames"][:MASKRCNN_FRAMES]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_boxes = [len(detector(torch.as_tensor(f).to(device).float() / 255.0)[0])
+               for f in frames_u8]
+    det_fps = len(frames_u8) / (time.perf_counter() - t0)
+    tracker = streaming.TrackingStreamRunner(
+        svc.models, svc.cad_bank, svc.intrinsic, SERVE_HW, n_vehicles=len(SERVE_IDS),
+        spec=svc.spec, vis_res=svc.cfg.runtime.vis_res, depth=2, detector=detector,
+        inv_homography=svc.inv_homography, min_track_frames=1)
+    scenes, n_conf = [], []
+    bg_u8 = ctx["background"]
+    for f in frames_u8:
+        res, tracks = tracker.submit_frame(f, background=bg_u8)
+        n_conf.append(len(tracks))
+        if res is not None:
+            scenes.append(res)
+    scenes.extend(tracker.flush())
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(r.frames_icn).all()) for r in scenes)
+    log(f"maskrcnn[stream]: {len(frames_u8)} frames, detections kept per frame {n_boxes}, "
+        f"detector alone {det_fps:.2f} frames/s; TrackingStreamRunner (depth 2) confirmed "
+        f"tracks per frame {n_conf}, {len(scenes)} scenes, finite {finite}, "
+        f"{tracker.throughput_fps:.2f} composited frames/s ({card})")
+    if not finite:
+        raise AssertionError("maskrcnn[stream]: non-finite frames")
+    svc.close()
+    shutil.rmtree(svc.cfg.output_dir, ignore_errors=True)
+    shutil.rmtree(ckpt)
+    return record, launches["nms_static"]
+
+
 def _drop_serving_data(ctx):
     if "service" in ctx:
         ctx["service"].close()
@@ -1933,6 +2386,11 @@ def main():
                 f"{phase_multi(device, smi, serving)}")
         if "web" in phases:
             phase_web(device, smi, serving)
+        if "inpaint" in phases:
+            phase_inpaint(device, smi, serving)
+        if "maskrcnn" in phases:
+            record, launches["nms_static"] = phase_maskrcnn(device, smi, serving)
+            kernels.append(record)
     finally:
         _drop_serving_data(serving)  # ~130 MB of frames and results stay on the machine
     if "warmup" in phases:

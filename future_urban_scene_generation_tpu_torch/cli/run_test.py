@@ -11,9 +11,12 @@ PyQt5 GUI to pick vehicles (run_test.py:156-161); here ``--select-ids`` and
 
 ``--device`` defaults to ``cuda``; a missing GPU is an error, never a silent move to
 the CPU. ``--web-gui`` serves the browser GUI on ``--host``/``--port`` and ``--gui``
-opens the Qt window (exit 2 without PyQt5). The flags of parts that are not ported
-yet (``--inpaint``, ``--segmenter maskrcnn``, ``--aot-dir``) parse and exit 2 with a
-line that names where the part waits in ROADMAP.md.
+opens the Qt window (exit 2 without PyQt5). ``--inpaint`` erases the selected
+vehicles from the future frames first (EdgeConnect's generators from
+``<checkpoints_dir>/inpainting/``, whose ``config.yml`` gives Canny's ``SIGMA``), with
+``--segmenter maskrcnn`` segmenting them by ``<checkpoints_dir>/maskrcnn/maskrcnn.pth``.
+``--aot-dir`` is not ported: it parses and exits 2 with a line that names where it
+waits in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -75,8 +78,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _not_ported(args):
     """(flag, ROADMAP place) of the first requested part that is not ported."""
     for wanted, flag, where in (
-        (args.inpaint, "--inpaint", "queue 1, S7 (inpaint branch)"),
-        (args.segmenter == "maskrcnn", "--segmenter maskrcnn", "queue 1, S7 (inpaint branch)"),
         (args.aot_dir is not None, "--aot-dir", "queue 1, S10 (AOT)"),
     ):
         if wanted:
@@ -104,7 +105,9 @@ def main(argv=None):
         track_mode=args.track_mode,
         bbox_scale=args.bbox_scale,
         video_fps=args.video_fps,
+        inpaint=args.inpaint,
         inpaint_model=args.inpaint_model,
+        segmenter=args.segmenter,
         reference_channel_order=args.reference_channel_order,
         reso=args.reso,
         batch=args.batch,
@@ -120,6 +123,7 @@ def main(argv=None):
     cfg.runtime.vis_res = args.vis_res
     if args.vis_scale is not None:
         print("--vis-scale is deprecated and ignored (see --vis-res)", file=sys.stderr)
+    cfg.load_edgeconnect_yaml()
 
     if args.web_gui:
         from future_urban_scene_generation_tpu_torch.gui.web import launch_web_gui

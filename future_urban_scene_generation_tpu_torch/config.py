@@ -1,8 +1,8 @@
 """One typed configuration tree for the whole framework.
 
 Counterpart of the JAX package's config.py (:16-135), dataclass for dataclass;
-``device`` defaults to ``"cuda"`` and PyYAML is imported only where a yaml file is
-read. The service turns the model fields into a frozen ``spec.ModelSpec``
+``device`` defaults to ``"cuda"``; yaml files are read by ``utils.yamlite`` (the port
+does not depend on PyYAML). The service turns the model fields into a frozen ``spec.ModelSpec``
 (``PipelineConfig.model_spec``) and hands that down; nothing global is mutated.
 
 Unifies the reference's three config systems (SURVEY §5): the 13 argparse CLI flags
@@ -60,11 +60,12 @@ class EdgeConnectConfig:
 
     @staticmethod
     def from_yaml(path) -> "EdgeConnectConfig":
-        import yaml
+        """The defaults overridden by the flat ``KEY: value`` pairs of ``path``
+        (read by ``utils.yamlite``: the port does not depend on PyYAML)."""
+        from future_urban_scene_generation_tpu_torch.utils import yamlite
 
         cfg = EdgeConnectConfig()
-        with open(path) as f:
-            raw = yaml.safe_load(f) or {}
+        raw = yamlite.load(path) or {}
         for key, value in raw.items():
             attr = key.lower()
             if hasattr(cfg, attr):

@@ -56,6 +56,17 @@ int fusg_conv_small_cin(const void* x, const void* wmat, void* out, int dtype, i
 // what ops/cuda_conv.py conv_plan mirrors on the Python side.
 int fusg_conv_smem_bytes(int dtype, int cin, int k, int cout);
 
+// N1 (nms.cu): greedy NMS of n boxes already sorted by descending score (stable).
+//   boxes_sorted (n, 4) f32 xyxy, scores_sorted (n,) f32, order (n,) i64 (original
+//   index of each sorted box); mask (n, ceil(n / 64)) u64 scratch; out (max_out,) i64:
+//   the first max_out kept boxes' original indices in score order, then -1. A box is
+//   kept when its score > score_thr and no kept box before it has IoU > iou_thr.
+//   n <= 4096 (the scan's shared memory, fusg_nms_smem_bytes(n) bytes, stays < 48 KB).
+int fusg_nms(const float* boxes_sorted, const float* scores_sorted, const long long* order,
+             int n, float iou_thr, float score_thr, int max_out, unsigned long long* mask,
+             long long* out, cudaStream_t stream);
+int fusg_nms_smem_bytes(int n);
+
 #ifdef __cplusplus
 }
 #endif

@@ -4,7 +4,9 @@ The port's modules carry the reference's state-dict names, so the JAX package's
 flax -> torch exporter logic (models/convert.py ``export_state_dict`` :91-183,
 copied here as numpy code, not imported) maps a flax tree onto
 ``module.state_dict()``'s keys and shapes; ``load_state_dict(strict=True)`` then
-loads it. The reference's own ``.pth`` files load into the same modules directly.
+loads it. The reference's own ``.pth`` files load into the same modules directly,
+after :func:`fold_spectral_norm` where they were saved with spectral norm (the
+EdgeConnect edge generator).
 """
 from __future__ import annotations
 
@@ -128,3 +130,35 @@ def load_vgg_classifier(module: torch.nn.Module, params_numpy: dict) -> torch.nn
         module, vgg_classifier_tree(params_numpy),
         flatten_linear_key="classifier.0.weight", flatten_linear_chw=(512, 7, 7),
     )
+
+
+def fold_spectral_norm(sd: Dict[str, object]) -> Dict[str, torch.Tensor]:
+    """Replace each (``weight_orig``, ``weight_u``, ``weight_v``) triple of a torch
+    state dict with torch's eval-mode effective weight, W = W_orig / sigma with
+    sigma = u . (W_mat v), in float64 and cast to float32 as the JAX package's
+    ``fold_spectral_norm`` (models/convert.py:36) does. The normalized dim is 0 (conv,
+    linear) or 1 (transposed conv), read off u's length. Other entries pass through."""
+    out = dict(sd)
+    for key in list(sd.keys()):
+        if not key.endswith("weight_orig"):
+            continue
+        prefix = key[: -len("weight_orig")]
+        w = _to_numpy(sd[key]).astype(np.float64)
+        u = _to_numpy(sd[prefix + "weight_u"]).astype(np.float64)
+        v = _to_numpy(sd[prefix + "weight_v"]).astype(np.float64)
+        if u.size == w.shape[0]:
+            w_mat = w.reshape(w.shape[0], -1)
+        elif w.ndim >= 2 and u.size == w.shape[1]:
+            w_mat = np.moveaxis(w, 1, 0).reshape(w.shape[1], -1)
+        else:
+            raise ValueError(f"cannot infer spectral-norm dim for {key}: {w.shape} vs u {u.shape}")
+        sigma = float(u @ (w_mat @ v))
+        out[prefix + "weight"] = torch.from_numpy((w / sigma).astype(np.float32))
+        del out[key], out[prefix + "weight_u"], out[prefix + "weight_v"]
+    return out
+
+
+def _to_numpy(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)

@@ -61,16 +61,24 @@ class _SmallCinConv(torch.autograd.Function):
         return (grad_x.permute(0, 2, 3, 1) if grad_x is not None else None), grad_w, None
 
 
-def conv_nhwc(x, weight, bias, stride: int = 1, padding: int = 0):
+def conv_nhwc(x, weight, bias, stride: int = 1, padding: int = 0, dilation: int = 1):
     """torch Conv2d (zero padding, cross-correlation) on NHWC ``x`` with an OIHW
-    ``weight``; the weight is cast to x's dtype, the bias added afterwards. A conv
-    that passes :func:`small_cin_gate` runs through kernel K3."""
+    ``weight``; the weight is cast to x's dtype, the bias (None: none) added
+    afterwards. A conv that passes :func:`small_cin_gate` runs through kernel K3."""
     weight = weight.to(x.dtype)
-    if small_cin_gate(x.shape[-1], weight.shape[-1], stride, x.dtype):
+    if dilation == 1 and small_cin_gate(x.shape[-1], weight.shape[-1], stride, x.dtype):
         y = _SmallCinConv.apply(x, weight, padding)
     else:
-        y = F.conv2d(x.permute(0, 3, 1, 2), weight, None, stride, padding).permute(0, 2, 3, 1)
-    return y + bias.to(y.dtype)
+        y = F.conv2d(x.permute(0, 3, 1, 2), weight, None, stride, padding,
+                     dilation).permute(0, 2, 3, 1)
+    return y if bias is None else y + bias.to(y.dtype)
+
+
+def conv_transpose_nhwc(x, weight, bias, stride: int = 2, padding: int = 1):
+    """torch ConvTranspose2d on NHWC ``x`` with an (in, out, kh, kw) ``weight``."""
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), weight.to(x.dtype), None, stride,
+                           padding).permute(0, 2, 3, 1)
+    return y if bias is None else y + bias.to(y.dtype)
 
 
 def reflect_pad(x, pad: int):
@@ -95,16 +103,32 @@ def activation(name):
 
 
 class Conv2d(nn.Module):
-    """torch nn.Conv2d parameters (``weight`` OIHW, ``bias``) with an NHWC forward."""
+    """torch nn.Conv2d parameters (``weight`` OIHW, ``bias`` unless ``bias=False``)
+    with an NHWC forward."""
 
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, padding: int = 0):
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, padding: int = 0,
+                 dilation: int = 1, bias: bool = True):
+        super().__init__()
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+    def forward(self, x):
+        return conv_nhwc(x, self.weight, self.bias, self.stride, self.padding, self.dilation)
+
+
+class ConvTranspose2d(nn.Module):
+    """torch nn.ConvTranspose2d parameters (``weight`` (in, out, kh, kw), ``bias``)
+    with an NHWC forward."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 2, padding: int = 1):
         super().__init__()
         self.stride, self.padding = stride, padding
-        self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
+        self.weight = nn.Parameter(torch.empty(cin, cout, k, k))
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x):
-        return conv_nhwc(x, self.weight, self.bias, self.stride, self.padding)
+        return conv_transpose_nhwc(x, self.weight, self.bias, self.stride, self.padding)
 
 
 class WNConv2d(nn.Module):

@@ -6,8 +6,10 @@ entries on one pair of kernels, triangle setup and tiles), ``stem_conv.cu`` (K2
 ``icn_stem_conv``) and
 ``conv_small_cin.cu`` (K3 ``conv_small_cin_v2`` and K4 ``conv_small_cin``, two
 entries on one kernel); the two conv sources are loaders around the shared main
-loops of ``conv_core.cuh``. The wrappers and their launch counters are in
-``ops/cuda_raster.py`` and ``ops/cuda_conv.py``.
+loops of ``conv_core.cuh``. A fourth, ``nms.cu``, holds N1, the Mask R-CNN's greedy
+NMS, which ports no TPU kernel (the JAX package scans in XLA). The wrappers and
+their launch counters are in ``ops/cuda_raster.py``, ``ops/cuda_conv.py`` and
+``ops/detection.py``.
 
 The sources are compiled with ``nvcc`` for ``sm_90a``, one process per source in
 parallel, and linked into a plain-C-interface shared library under
@@ -30,7 +32,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("raster.cu", "stem_conv.cu", "conv_small_cin.cu")
+SOURCES = ("raster.cu", "stem_conv.cu", "conv_small_cin.cu", "nms.cu")
 HEADERS = ("fusg_kernels.h", "conv_core.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -126,4 +128,8 @@ def _bind(lib):
     lib.fusg_conv_small_cin.restype = i
     lib.fusg_conv_smem_bytes.argtypes = [i, i, i, i]
     lib.fusg_conv_smem_bytes.restype = i
+    lib.fusg_nms.argtypes = [p, p, p, i, ctypes.c_float, ctypes.c_float, i, p, p, p]
+    lib.fusg_nms.restype = i
+    lib.fusg_nms_smem_bytes.argtypes = [i]
+    lib.fusg_nms_smem_bytes.restype = i
     return lib

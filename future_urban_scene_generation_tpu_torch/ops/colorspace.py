@@ -1,9 +1,10 @@
-"""RGB <-> LAB in OpenCV's uint8 convention (/255), as elementwise torch math.
+"""Colour conversions as elementwise torch math: RGB <-> LAB in OpenCV's uint8
+convention (/255), their BGR forms, OpenCV's gray and BT.601 YCbCr.
 
-Counterpart of the JAX package's ops/colorspace.py (:59 rgb_to_lab, :82 lab_to_rgb):
-the sRGB gamma expansion, the D65 XYZ matrix applied as explicit per-channel FMAs,
-CIE f(t) with the 0.008856 threshold, L scaled to [0, 255] and a/b offset by 128.
-Channels-last, any leading batch dims.
+Counterpart of the JAX package's ops/colorspace.py (:59 rgb_to_lab, :82 lab_to_rgb,
+:97-130 the BGR, gray and YCbCr forms): the sRGB gamma expansion, the D65 XYZ
+matrix applied as explicit per-channel FMAs, CIE f(t) with the 0.008856 threshold, L
+scaled to [0, 255] and a/b offset by 128. Channels-last, any leading batch dims.
 """
 from __future__ import annotations
 
@@ -86,3 +87,32 @@ def lab_to_rgb(lab):
     r, g, b = _mix3(_XYZ2RGB, x, y, z)
     lin = torch.stack([r, g, b], dim=-1)
     return torch.clamp(srgb_gamma_compress(lin), 0.0, 1.0)
+
+
+def bgr_to_lab(bgr):
+    return rgb_to_lab(bgr.flip(-1))
+
+
+def lab_to_bgr(lab):
+    return lab_to_rgb(lab).flip(-1)
+
+
+def rgb_to_gray(rgb):
+    """Luma per OpenCV COLOR_RGB2GRAY: 0.299 R + 0.587 G + 0.114 B, keeping a last
+    dim of 1 (JAX colorspace.py:105)."""
+    w = torch.tensor([0.299, 0.587, 0.114], dtype=rgb.dtype, device=rgb.device)
+    return torch.sum(rgb * w, dim=-1, keepdim=True)
+
+
+def bgr_to_gray(bgr):
+    return rgb_to_gray(bgr.flip(-1))
+
+
+def rgb_to_ycbcr(rgb):
+    """BT.601 YCbCr in the [16..235]/[16..240] range convention of the reference's
+    RGB2YCbCr layer (vunet/layers.py:224-243)."""
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    y = 16.0 + 65.481 * r + 128.553 * g + 24.966 * b
+    cb = 128.0 - 37.797 * r - 74.203 * g + 112.0 * b
+    cr = 128.0 + 112.0 * r - 93.786 * g - 18.214 * b
+    return torch.stack([y, cb, cr], dim=-1)

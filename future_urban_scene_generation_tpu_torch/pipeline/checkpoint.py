@@ -1,5 +1,6 @@
 """Checkpoints: the trainer's state in one ``torch.save`` file, and the reference's
-model zoo for serving.
+model zoo for serving (the scene's four networks, EdgeConnect's two generators and
+Mask R-CNN).
 
 Counterpart of the JAX package's pipeline/checkpoint.py: ``save`` / ``restore``
 (:20-36), which write an Orbax tree, and ``load_reference_model_zoo`` (:71-151),
@@ -41,32 +42,59 @@ def restore(path, state):
     return state
 
 
-# The reference's checkpoint layout (run_test.py:54-87): Models field -> file.
-# ``inpainting/*`` and ``maskrcnn/*`` belong to the inpaint branch (not ported).
+# The reference's checkpoint layout (run_test.py:54-87, and the JAX package's
+# maskrcnn/maskrcnn.pth): network name -> file under the checkpoints directory.
 ZOO_FILES = {
     "cad": ("cads", "model.pth"),
     "hourglass": ("kpoints", "hourglass.pth"),
     "icn": ("icn", "256_synth", "gnet_00020.pth"),
     "vunet": ("vunet", "256", "vunet.pth"),
+    "edge": ("inpainting", "EdgeModel_gen.pth"),
+    "inpaint": ("inpainting", "InpaintingModel_gen.pth"),
+    "maskrcnn": ("maskrcnn", "maskrcnn.pth"),
 }
+
+
+def zoo_path(checkpoints_dir, name: str) -> Path:
+    return Path(checkpoints_dir).joinpath(*ZOO_FILES[name])
+
+
+def zoo_state_dict(checkpoints_dir, name: str):
+    """The state dict of zoo file ``name`` under the port's keys, or None when the
+    file is absent. A file may hold the state dict itself or wrap it as
+    ``{"iteration", "generator"}`` (EdgeConnect) or ``{"model"}`` (Mask R-CNN);
+    spectral-norm triples are folded (the EdgeConnect edge generator,
+    ``convert.fold_spectral_norm``) and torchvision's newer Mask R-CNN keys
+    normalized (``maskrcnn.convert_maskrcnn``), as the JAX converter does."""
+    from future_urban_scene_generation_tpu_torch.models.convert import fold_spectral_norm
+
+    path = zoo_path(checkpoints_dir, name)
+    if not path.is_file():
+        return None
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "generator" in sd:
+        sd = sd["generator"]
+    elif isinstance(sd, dict) and "model" in sd:
+        sd = sd["model"]
+    sd = fold_spectral_norm(sd)
+    if name == "maskrcnn":
+        from future_urban_scene_generation_tpu_torch.models.maskrcnn import convert_maskrcnn
+
+        sd = convert_maskrcnn(sd)
+    return sd
 
 
 def load_reference_model_zoo(checkpoints_dir, models) -> list:
     """Load every file of the reference layout that is present under
-    ``checkpoints_dir`` into the matching network of ``models`` (a
-    ``stages.Models``), strictly, onto the network's device. A file may hold the
-    state dict itself or wrap it as ``{"iteration", "generator"}``. Missing files
-    are skipped, so a partial zoo leaves the other networks as they were. Returns
-    the names loaded."""
-    root = Path(checkpoints_dir)
+    ``checkpoints_dir`` into the network of the same name in ``models`` (a named
+    tuple of networks: ``stages.Models``, ``service.InpaintModels``), strictly, onto
+    the network's device. Missing files are skipped, so a partial zoo leaves the
+    other networks as they were. Returns the names loaded."""
     loaded = []
-    for name, parts in ZOO_FILES.items():
-        path = root.joinpath(*parts)
-        if not path.is_file():
+    for name in models._fields:
+        sd = zoo_state_dict(checkpoints_dir, name)
+        if sd is None:
             continue
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        if isinstance(sd, dict) and "generator" in sd:
-            sd = sd["generator"]
         getattr(models, name).load_state_dict(sd, strict=True)
         loaded.append(name)
     return loaded

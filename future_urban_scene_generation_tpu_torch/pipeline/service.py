@@ -10,21 +10,31 @@ in the reference's layout, <out>/{warp&learn,vunet}/<scene>_<cam>/{frame_id:04}.
 The model fields of the config become one frozen ``ModelSpec`` that is handed to
 the runner. The frames are converted to uint8 on the device (the same clip and
 truncation the JAX service applies on the host) so that a quarter of the bytes
-come back. The inpaint branch and ahead-of-time programs are not ported and are
-refused.
+come back.
+
+The inpaint branch (``cfg.inpaint``, JAX service.py:51-98, 270-339) erases the
+selected vehicles from each of the six future frames on the device before they
+become the backgrounds: a segmenter (``BackgroundDiffSegmenter`` against the static
+background by default, Mask R-CNN with ``cfg.segmenter == "maskrcnn"``, or one the
+caller passes) and EdgeConnect (``pipeline/inpaint.py``), batched over the six frames
+a vehicle. Where the JAX service serves the static background when the EdgeConnect
+files are missing, this one raises ``FileNotFoundError`` naming them, as both do for
+a missing ``maskrcnn.pth``. Ahead-of-time programs are not ported and are refused.
 """
 from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import List, Tuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from future_urban_scene_generation_tpu_torch.config import PipelineConfig
 from future_urban_scene_generation_tpu_torch.geometry import gps
-from future_urban_scene_generation_tpu_torch.pipeline import checkpoint, runner
+from future_urban_scene_generation_tpu_torch.models import edgeconnect
+from future_urban_scene_generation_tpu_torch.models.detector import BackgroundDiffSegmenter
+from future_urban_scene_generation_tpu_torch.pipeline import checkpoint, inpaint, runner
 from future_urban_scene_generation_tpu_torch.pipeline.stages import Models
 from future_urban_scene_generation_tpu_torch.utils import mesh as mesh_io
 from future_urban_scene_generation_tpu_torch.utils import video as video_io
@@ -52,17 +62,25 @@ def frames_to_uint8(frames: torch.Tensor) -> torch.Tensor:
     return (frames.to(torch.float32) * 255.0).clamp(0.0, 255.0).to(torch.uint8)
 
 
+class InpaintModels(NamedTuple):
+    """EdgeConnect's two generators, named as their zoo files (checkpoint.ZOO_FILES)."""
+
+    edge: edgeconnect.EdgeGenerator
+    inpaint: edgeconnect.InpaintGenerator
+
+
 class SceneService:
-    def __init__(self, cfg: PipelineConfig):
-        if cfg.inpaint or cfg.segmenter != "background":
-            raise NotImplementedError(
-                "the inpaint branch (--inpaint, --segmenter maskrcnn) is not ported to "
-                "PyTorch yet: ROADMAP.md queue 1, S7")
+    def __init__(self, cfg: PipelineConfig, segmenter=None):
         if cfg.runtime.aot_dir:
             raise NotImplementedError(
                 "ahead-of-time scene programs (--aot-dir) are not ported to PyTorch yet: "
                 "ROADMAP.md queue 1, S10")
         self.cfg = cfg
+        # The inpaint branch's vehicle segmenter (models/detector.py); None resolves
+        # to cfg.segmenter: Mask R-CNN from the zoo, or BackgroundDiffSegmenter
+        # against the static background at each request.
+        self.segmenter = segmenter
+        self.inpaint_models = None  # EdgeConnect's generators, loaded with cfg.inpaint
         self.device = resolve_device(cfg.device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -83,6 +101,7 @@ class SceneService:
 
         self._load_assets()
         self._load_models()
+        self._build_segmenter()
 
     def _video_source(self):
         video_file = Path(self.cfg.video_dir) / "vdo.avi"
@@ -118,13 +137,71 @@ class SceneService:
         ckpt = self.cfg.checkpoints_dir
         if ckpt is not None and Path(ckpt).exists():
             checkpoint.load_reference_model_zoo(ckpt, self.models)
+        if self.cfg.inpaint:
+            self.inpaint_models = self._load_inpaint_models()
+
+    def _load_inpaint_models(self) -> InpaintModels:
+        """EdgeConnect's generators from the zoo; both files are required."""
+        ckpt = Path(self.cfg.checkpoints_dir or ".")
+        paths = [checkpoint.zoo_path(ckpt, name) for name in InpaintModels._fields]
+        missing = [str(p) for p in paths if not p.is_file()]
+        if missing:
+            raise FileNotFoundError(
+                f"--inpaint needs EdgeConnect's generators {paths[0]} and {paths[1]} "
+                f"(the reference's EdgeModel_gen.pth / InpaintingModel_gen.pth); missing: "
+                f"{', '.join(missing)}")
+        sds = {name: checkpoint.zoo_state_dict(ckpt, name) for name in InpaintModels._fields}
+        # The reference's generators have 8 residual blocks; the files say how many.
+        blocks = len({k.split(".")[1] for k in sds["edge"] if k.startswith("middle.")})
+        nets = InpaintModels(*edgeconnect.build_generators(device=self.device,
+                                                            residual_blocks=blocks))
+        for name, net in zip(InpaintModels._fields, nets):
+            net.load_state_dict(sds[name], strict=True)
+        return nets
+
+    def _build_segmenter(self):
+        """Resolve cfg.segmenter when no segmenter was passed in (JAX service.py:51-98).
+
+        "maskrcnn": ``maskrcnn/maskrcnn.pth`` of the checkpoints directory (a
+        torchvision ``maskrcnn_resnet50_fpn`` state dict) with an optional
+        ``config.yml`` sidecar overriding {num_classes, layers, width, out_channels,
+        representation_size, input_hw, classes, min_iou} (read by
+        ``utils.yamlite``). "background" resolves at each request."""
+        if self.segmenter is not None or self.cfg.segmenter != "maskrcnn":
+            return
+        from future_urban_scene_generation_tpu_torch.models.detector import MaskRCNNSegmenter
+        from future_urban_scene_generation_tpu_torch.models.maskrcnn import MaskRCNN
+        from future_urban_scene_generation_tpu_torch.utils import yamlite
+
+        ckpt = Path(self.cfg.checkpoints_dir or ".")
+        path = checkpoint.zoo_path(ckpt, "maskrcnn")
+        if not path.is_file():
+            raise FileNotFoundError(
+                f"--segmenter maskrcnn needs {path} (a torchvision maskrcnn_resnet50_fpn "
+                "state dict; optional config.yml sidecar for reduced/fine-tuned configs)")
+        sidecar = path.parent / "config.yml"
+        conf = (yamlite.load(sidecar) or {}) if sidecar.is_file() else {}
+        model = MaskRCNN.build(
+            device=self.device,
+            num_classes=int(conf.get("num_classes", 91)),
+            layers=tuple(conf.get("layers", (3, 4, 6, 3))),
+            width=int(conf.get("width", 64)),
+            out_channels=int(conf.get("out_channels", 256)),
+            representation_size=int(conf.get("representation_size", 1024)),
+        )
+        model.load_state_dict(checkpoint.zoo_state_dict(ckpt, "maskrcnn"), strict=True)
+        self.segmenter = MaskRCNNSegmenter(
+            model, classes=tuple(conf.get("classes", (3, 6, 8))),
+            min_iou=float(conf.get("min_iou", 0.3)),
+            input_hw=tuple(conf.get("input_hw", (512, 1024))), device=self.device)
 
     # ------------------------------------------------------------------
-    def request_arguments(self, frame_id: int, vehicle_ids: List[int]
-                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-        """The host half of a request: (frame (H, W, 3) float32, background,
+    def request_arguments(self, frame_id: int, vehicle_ids: List[int]) -> Tuple:
+        """The arguments of a request's scene: (frame (H, W, 3) float32, background,
         bboxes (V, 4) float32 xyxy, meters (V, 6, 2) float32), V padded to the
-        vehicle bucket."""
+        vehicle bucket. The background is the static one (or the frame), on the
+        host, or in inpaint mode the (6, H, W, 3) stack of erased future frames on
+        the service's device."""
         h, w = self.frame_hw
         frame = self.reader.read(frame_id)
         if frame is None:
@@ -161,11 +238,44 @@ class SceneService:
             bboxes.append(np.float32([0.0, 0.0, 0.0, 0.0]))
             meter_tracks.append(np.zeros((FUTURE_STEPS, 2), np.float64))
 
-        background = self._static_background()
-        if background is None:
-            background = frame
-        return (frame, background, np.float32(bboxes),
-                np.float32(np.stack(meter_tracks)))
+        bboxes = np.float32(bboxes)
+        return frame, self._backgrounds(frame, frame_id, bboxes), bboxes, np.float32(
+            np.stack(meter_tracks))
+
+    def _backgrounds(self, frame: np.ndarray, frame_id: int, bboxes: np.ndarray):
+        """The backgrounds the vehicles composite onto (JAX service.py:270-339).
+
+        Without inpaint: ``background_frame.png`` (or the frame) for every step
+        (trajectory_inference.py:42-53). With it: each future frame with the
+        vehicles erased (trajectory_inference.py:107-145, 300-350), a (6, H, W, 3)
+        tensor on the device. Masks come from one segmenter call a frame where the
+        segmenter has one for all boxes (``masks`` / ``masks_for_bboxes``: one Mask
+        R-CNN pass a frame, not one a vehicle), else one call a (frame, box).
+        Padding rows are left out: their context window is empty."""
+        static_bg = self._static_background()
+        if self.inpaint_models is None:
+            return static_bg if static_bg is not None else frame
+        segmenter = self.segmenter or BackgroundDiffSegmenter(
+            static_bg if static_bg is not None else frame, device=self.device)
+        frames = [frame]
+        for n in range(1, FUTURE_STEPS):
+            cur = self.reader.read(frame_id + 2 * n)
+            frames.append(frame if cur is None else cur)
+        frames_d = torch.as_tensor(np.stack(frames)).to(self.device)
+        hw = tuple(self.frame_hw)
+        real = [v for v in range(len(bboxes)) if not inpaint.window_is_empty(bboxes[v], hw)]
+        boxes_d = torch.as_tensor(bboxes[real]).to(self.device)
+        with torch.no_grad():
+            if isinstance(segmenter, BackgroundDiffSegmenter):
+                masks = segmenter.masks(frames_d, boxes_d)
+            elif hasattr(segmenter, "masks_for_bboxes"):
+                masks = torch.stack([segmenter.masks_for_bboxes(f, boxes_d) for f in frames_d])
+            else:
+                masks = torch.stack([torch.stack([segmenter(f, b) for b in boxes_d])
+                                     for f in frames_d])
+        nets = self.inpaint_models
+        return inpaint.erase_vehicles(nets.edge, nets.inpaint, frames_d, bboxes[real], masks,
+                                      sigma=float(self.cfg.edgeconnect.sigma))
 
     def run_request(self, frame_id: int, vehicle_ids: List[int]) -> List[Path]:
         """Synthesize the 6 future frames for the selected vehicles; write PNGs."""

@@ -7,8 +7,9 @@ streaming (detect -> track -> keypoint -> NVS -> composite) the package provides
 missing front-end:
 
 * ``BackgroundDiffDetector``: a frame-level detector for static cameras, the pixel
-  work on the device and connected components on the host (the Mask R-CNN detector
-  comes with the inpaint branch);
+  work on the device and connected components on the host;
+* ``MaskRCNNDetector``: the native Mask R-CNN (models/maskrcnn.py) on the frame,
+  vehicle classes kept;
 * ``IouTracker``: greedy IoU association with constant-velocity box prediction,
   the SORT-style baseline (O(tracks x detections) control logic over <= 16 boxes:
   host numpy by design, the device does the pixel work);
@@ -45,6 +46,39 @@ class PendingGrid:
     event: object
 
 
+class _PinnedSlots:
+    """Two alternating pinned host buffers for detections in flight: a result is
+    copied to the host right behind the work that makes it, and an event recorded
+    behind the copy, so that the later read waits for that detection alone (not for
+    whatever was enqueued after it). A handle must be finalized before the second
+    staging after it; pinned memory is allocated once, not per frame."""
+
+    def __init__(self):
+        self._host = [None, None]
+        self._slot = 0
+
+    def stage(self, t: torch.Tensor) -> "PendingGrid":
+        slot = self._slot
+        self._slot = 1 - slot
+        host = self._host[slot]
+        if host is None or host.shape != t.shape or host.dtype != t.dtype:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+            self._host[slot] = host
+        host.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return PendingGrid(host, event)
+
+
+def _read(handle) -> np.ndarray:
+    """The host array of a :meth:`dispatch` handle: a :class:`PendingGrid` after its
+    own event, or a CPU tensor as it is."""
+    if isinstance(handle, PendingGrid):
+        handle.event.synchronize()
+        return handle.host.numpy()
+    return handle.cpu().numpy()
+
+
 class BackgroundDiffDetector:
     """Static-camera vehicle detector: device-side |frame - background| mask,
     host-side connected components on a downsampled grid.
@@ -62,8 +96,7 @@ class BackgroundDiffDetector:
         self.min_cells = max(1, int(min_area_px / (scale * scale)))
         self.max_boxes = int(max_boxes)
         self.background = background
-        self._host = [None, None]  # pinned grids of the pending detections
-        self._slot = 0
+        self._slots = _PinnedSlots()
 
     @torch.no_grad()
     def dispatch(self, frame: torch.Tensor):
@@ -90,29 +123,12 @@ class BackgroundDiffDetector:
         return self._stage(grid) if grid.is_cuda else grid
 
     def _stage(self, grid: torch.Tensor) -> "PendingGrid":
-        """Copy ``grid`` to the host without blocking and record an event behind the
-        copy. Two host buffers alternate (the runner holds one detection pending
-        while it dispatches the next; pinned memory is allocated once, not per
-        frame): a handle must be finalized before the second dispatch after it."""
-        slot = self._slot
-        self._slot = 1 - slot
-        host = self._host[slot]
-        if host is None or host.shape != grid.shape:
-            host = torch.empty(grid.shape, dtype=grid.dtype, pin_memory=grid.is_cuda)
-            self._host[slot] = host
-        host.copy_(grid, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return PendingGrid(host, event)
+        return self._slots.stage(grid)
 
     def finalize(self, handle) -> Tuple[np.ndarray, np.ndarray]:
         """Wait for one :meth:`dispatch` (its own event, nothing else on the stream),
         read its grid on the host and extract boxes (host union-find)."""
-        if isinstance(handle, PendingGrid):
-            handle.event.synchronize()
-            grid = handle.host.numpy()
-        else:
-            grid = handle.cpu().numpy()
+        grid = _read(handle)
         boxes = _connected_component_boxes(grid, self.min_cells)
         s = float(self.scale)
         out = np.asarray(
@@ -122,6 +138,49 @@ class BackgroundDiffDetector:
         scores = np.asarray([a for *_, a in boxes], np.float32)
         order = np.argsort(-scores)[: self.max_boxes]
         return out[order], scores[order]
+
+    def __call__(self, frame) -> Tuple[np.ndarray, np.ndarray]:
+        return self.finalize(self.dispatch(frame))
+
+
+class MaskRCNNDetector:
+    """Frame-level vehicle detection with the native Mask R-CNN (models/maskrcnn.py):
+    the frame resized to ``input_hw``, one inference, the vehicle classes kept (COCO
+    3 = car, 6 = bus, 8 = truck; the reference keeps car and truck, run_test.py:41-43)
+    at ``score_threshold``. Counterpart of the JAX detector (tracking.py:153-202),
+    with ``BackgroundDiffDetector``'s split: ``dispatch`` enqueues the inference and,
+    on the card, one copy of its (D, 7) result (box, score, label, valid) to pinned
+    memory behind an event; ``finalize`` waits on that event only."""
+
+    def __init__(self, model, classes=(3, 6, 8), score_threshold: float = 0.5,
+                 input_hw=(512, 1024), *, device):
+        self.model = model.to(device).eval()
+        self.classes = tuple(classes)
+        self.score_threshold = float(score_threshold)
+        self.input_hw = tuple(input_hw)
+        self._slots = _PinnedSlots()
+
+    @torch.no_grad()
+    def dispatch(self, frame: torch.Tensor):
+        from future_urban_scene_generation_tpu_torch.models.detector import scale_boxes
+        from future_urban_scene_generation_tpu_torch.models.maskrcnn import maskrcnn_infer
+        from future_urban_scene_generation_tpu_torch.ops.resize import resize_bilinear
+
+        h, w = frame.shape[0], frame.shape[1]
+        ih, iw = self.input_hw
+        det = maskrcnn_infer(self.model, resize_bilinear(frame, (ih, iw)))
+        packed = torch.cat([scale_boxes(det.boxes, w / iw, h / ih), det.scores[:, None],
+                            det.labels[:, None].to(torch.float32),
+                            det.valid[:, None].to(torch.float32)], dim=-1)
+        return self._slots.stage(packed) if packed.is_cuda else packed
+
+    def finalize(self, handle) -> Tuple[np.ndarray, np.ndarray]:
+        packed = _read(handle)
+        boxes, scores = packed[:, :4].astype(np.float32), packed[:, 4].astype(np.float32)
+        labels = packed[:, 5].astype(np.int64)
+        keep = ((packed[:, 6] > 0.5) & (scores >= self.score_threshold)
+                & np.isin(labels, self.classes))
+        return boxes[keep], scores[keep]
 
     def __call__(self, frame) -> Tuple[np.ndarray, np.ndarray]:
         return self.finalize(self.dispatch(frame))

@@ -286,15 +286,14 @@ def save_ply_ascii(path, mesh: TriangleMesh):
 
 def load_cad_with_keypoints(cad_root, cad_idx: int, pascal_class: str = "car"):
     """Load pascal_{class}_cad_{idx:03d}.ply + its .yaml 3D keypoints
-    (utils/cad_utils.py:8-26). Returns (TriangleMesh, (12, 3) keypoint array)."""
-    import yaml
+    (utils/cad_utils.py:8-26). Returns (TriangleMesh, (12, 3) keypoint array). The
+    yaml is read by ``utils.yamlite`` (the port does not depend on PyYAML)."""
+    from future_urban_scene_generation_tpu_torch.utils import yamlite
 
     cad_root = Path(cad_root)
     ply_path = cad_root / f"pascal_{pascal_class}_cad_{cad_idx:03d}.ply"
     mesh = load_ply(ply_path)
-    yaml_path = ply_path.with_suffix(".yaml")
-    with open(yaml_path) as f:
-        kp3d_dict = yaml.safe_load(f)["kpoints_3d"]
+    kp3d_dict = yamlite.load(ply_path.with_suffix(".yaml"))["kpoints_3d"]
     return mesh, kp.dict_to_array(kp3d_dict, dim=3)
 
 

@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from future_urban_scene_generation_tpu_torch.examples import demo_synthetic
+from future_urban_scene_generation_tpu_torch.models import detector, edgeconnect, maskrcnn
+from future_urban_scene_generation_tpu_torch.pipeline import tracking
 from future_urban_scene_generation_tpu_torch.pipeline import runner, stages, synthetic, training
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
 from future_urban_scene_generation_tpu_torch.utils.native import read_png
@@ -28,7 +30,9 @@ def test_every_module_imports_without_jax():
         for p in PKG.rglob("*.py") if "_build" not in p.parts
     )
     assert len(modules) > 40 and f"{PKG.name}.cli.run_test" in modules
-    for new in ("gui.web", "gui.app", "cli.warmup", "ops.heatmap"):
+    for new in ("gui.web", "gui.app", "cli.warmup", "ops.heatmap", "ops.canny",
+                "ops.morphology", "ops.detection", "models.edgeconnect", "models.maskrcnn",
+                "models.detector", "pipeline.inpaint", "utils.yamlite"):
         assert f"{PKG.name}.{new}" in modules
     code = (
         "import importlib, sys\n"
@@ -38,7 +42,7 @@ def test_every_module_imports_without_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m == jax_pkg or m.startswith(jax_pkg + '.')]\n"
         "assert not bad, bad\n"
-        "for opt in ('yaml', 'cv2', 'PIL', 'PyQt5', 'matplotlib'):\n"
+        "for opt in ('yaml', 'cv2', 'PIL', 'PyQt5', 'matplotlib', 'torchvision'):\n"
         "    assert opt not in sys.modules, opt\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -52,6 +56,10 @@ def test_every_module_imports_without_jax():
     runner.build_cad_bank, synthetic.make_bench_scene, synthetic.oracle_perception,
     stages.Models.build, training.ICNTrainer.init, training.VunetTrainer.init,
     training.HourglassTrainer.init, training.CadClassifierTrainer.init,
+    edgeconnect.build_generators, maskrcnn.MaskRCNN.build,
+    detector.MeshSilhouetteSegmenter.__init__, detector.BackgroundDiffSegmenter.__init__,
+    detector.HostDetectorSegmenter.__init__, detector.MaskRCNNSegmenter.__init__,
+    tracking.MaskRCNNDetector.__init__,
 ], ids=lambda f: f.__qualname__)
 def test_library_entry_points_require_a_device(fn):
     """No library entry point picks a device for its caller."""

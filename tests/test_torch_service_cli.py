@@ -154,8 +154,11 @@ def test_static_background_png_is_used(dataset, tmp_path):
 
 
 def test_service_refuses_unported_parts_and_missing_card(dataset, tmp_path):
-    for kw in (dict(inpaint=True), dict(segmenter="maskrcnn")):
-        with pytest.raises(NotImplementedError, match="S7"):
+    # The inpaint branch's weight files are missing: an error that names them, never
+    # a request served without the erase.
+    for kw, names in ((dict(inpaint=True), "EdgeModel_gen.pth and .*InpaintingModel_gen.pth"),
+                      (dict(segmenter="maskrcnn"), "maskrcnn.pth")):
+        with pytest.raises(FileNotFoundError, match=names):
             service.SceneService(_configs(dataset, tmp_path, **kw)[1])
     cfg = _configs(dataset, tmp_path)[1]
     cfg.runtime.aot_dir = tmp_path / "aot"
@@ -171,14 +174,22 @@ def test_service_refuses_unported_parts_and_missing_card(dataset, tmp_path):
 
 @pytest.mark.parametrize("flags,names", [
     ([], "--select-ids"),
-    (["--select-ids", "7", "--inpaint"], "S7"),
-    (["--select-ids", "7", "--segmenter", "maskrcnn"], "S7"),
+    # The inpaint branch without its weight files raises, naming them (as the JAX CLI
+    # does for maskrcnn.pth); it does not serve without the erase.
+    (["--select-ids", "7", "--inpaint"], FileNotFoundError("y/inpainting/EdgeModel_gen.pth")),
+    (["--select-ids", "7", "--segmenter", "maskrcnn"],
+     FileNotFoundError("y/maskrcnn/maskrcnn.pth")),
     (["--select-ids", "7", "--aot-dir", "somewhere"], "S10"),
     (["--select-ids", "7", "--gui"], "GUI unavailable"),  # no PyQt5 here: the JAX line
     (["--gui"], "use --select-ids for headless mode"),
 ])
 def test_cli_exits_2(dataset, capsys, flags, names):
-    assert run_test.main([str(dataset), "x", "y", "--device", "cpu", *flags]) == 2
+    argv = [str(dataset), "x", "y", "--device", "cpu", *flags]
+    if isinstance(names, Exception):
+        with pytest.raises(type(names), match=str(names)):
+            run_test.main(argv)
+        return
+    assert run_test.main(argv) == 2
     assert names in capsys.readouterr().err
 
 

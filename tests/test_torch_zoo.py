@@ -43,7 +43,8 @@ def zoo_dir(tmp_path_factory):
                                        jnp.zeros((1, 128, 128, 6)), cov=0.0)),
     }
     blank = Models.build(ModelSpec(), device="cpu")
-    for name, parts in checkpoint.ZOO_FILES.items():
+    for name in Models._fields:  # the scene's four; tests/test_torch_edgeconnect.py the rest
+        parts = checkpoint.ZOO_FILES[name]
         module = getattr(blank, name)
         if name == "cad":
             sd = convert.export_state_dict(
