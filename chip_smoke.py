@@ -14,11 +14,15 @@ and maskrcnn phases drive the inpaint branch: ``cli.run_test --inpaint`` with th
 background-difference segmenter and with ``--segmenter maskrcnn``, from seeded
 full-width EdgeConnect and Mask R-CNN files in the reference's layouts (written, and
 read back, with PyYAML blocked), with kernel N1 (Mask R-CNN's NMS) against its plain
-version and ``TrackingStreamRunner`` with ``MaskRCNNDetector``.
+version and ``TrackingStreamRunner`` with ``MaskRCNNDetector``. The train_ec phase
+trains EdgeConnect's edge and inpainting models at full width through ``cli.train``
+(batch 4, 256^2, a resume, ``--vgg-weights``), times them, holds one step on the card
+against the CPU, and serves the runs back through ``cli/export_zoo`` and the zoo
+loader; no kernel of the port is on that path.
 
     python3 chip_smoke.py                    # every phase, one GPU
     python3 chip_smoke.py --phases k3,train  # a subset (device and build always run)
-    python3 chip_smoke.py --profile          # also write a torch.profiler table of one scene
+    python3 chip_smoke.py --profile          # also profile one scene and one EdgeConnect step each
 
 The k1 phase holds K1 and K1' (two CUDA launches a call: triangle setup, tiles) at
 every shape against their plain versions after a launch on all-NaN inputs: the setup
@@ -57,7 +61,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 ALL_PHASES = ("k1", "k2", "k3", "gpu_vs_cpu", "main", "train", "demo", "serve", "stream",
-              "multi", "warmup", "web", "inpaint", "maskrcnn")
+              "multi", "warmup", "web", "inpaint", "maskrcnn", "train_ec")
 # Published peaks of one H100 SXM: device memory bytes/s, float32 FLOP/s outside the
 # tensor cores, dense bf16 FLOP/s.
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -906,7 +910,8 @@ def _grad_distances(got, ref, zero, net):
     for name, r in ref.items():
         g = got[name]
         if f"{net}.{name}" in zero:
-            scale = ref[name.replace(".bias", ".weight")].abs().max()
+            weight = name[: -len("bias")] + "weight"
+            scale = ref.get(weight, ref.get(weight + "_orig")).abs().max()
             v = (max(g.abs().max(), r.abs().max()) / scale).item()
             out[name] = (v, v)
         else:
@@ -2339,6 +2344,260 @@ def phase_maskrcnn(device, card, ctx):
     return record, launches["nms_static"]
 
 
+# --- The EdgeConnect trainers (S9b): cli.train --model edge|inpaint, export -> serve ---
+EC_BATCH = 4  # the JAX CLI's default --batch
+EC_HW = 256
+EC_CPU_HW = {"edge": 256, "inpaint": 256}  # card-vs-CPU step size, batch 2
+
+
+def _write_vgg19_trunk(path):
+    """A seeded VGG19 trunk under torchvision's keys (features.N.weight / .bias), as
+    ``--vgg-weights`` reads a torchvision vgg19 state dict."""
+    from future_urban_scene_generation_tpu_torch.models.layers import seeded_init_
+    from future_urban_scene_generation_tpu_torch.models.vgg import VGG19Features
+
+    net = seeded_init_(VGG19Features(), torch.Generator().manual_seed(13))
+    torch.save(net.state_dict(), path)
+
+
+def _ec_cli(model, out, extra, device):
+    """``cli.train --model edge|inpaint`` at batch 4, 256^2 on the card in a fresh
+    directory: 2 steps, then ``--resume`` to 3. Checks the logged steps, finite
+    losses and that every spectral-norm u with more than one entry moved from its
+    initial draw (a one-entry u is +-1)."""
+    from future_urban_scene_generation_tpu_torch.cli import train as cli_train
+    from future_urban_scene_generation_tpu_torch.pipeline import training
+
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ["--model", model, "--batch", str(EC_BATCH), "--image-size", str(EC_HW),
+            "--device", device, "--out", out, "--log-interval", "1", "--save-interval", "1",
+            *extra]
+    t0 = time.perf_counter()
+    cli_train.main(argv + ["--steps", "2"])
+    cli_train.main(argv + ["--steps", "3", "--resume"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [{k: v for k, v in r.items() if k not in ("step", "time")} for r in recs]
+    saved = torch.load(os.path.join(out, "checkpoint.pt"), map_location="cpu", weights_only=True)
+    trainer = (training.EdgeModelTrainer() if model == "edge"
+               else training.InpaintingModelTrainer())
+    fresh = trainer.init(torch.Generator().manual_seed(10), device="cpu")  # the CLI's seed
+    moved, still = 0, []
+    for net in ("gen", "dis"):
+        for k, v in getattr(fresh, net).state_dict().items():
+            if k.endswith("weight_u") and v.numel() > 1:
+                if torch.equal(saved[net][k], v):
+                    still.append(f"{net}.{k}")
+                moved += 1
+    size = os.path.getsize(os.path.join(out, "checkpoint.pt")) / 2 ** 20
+    log(f"train_ec[{model} cli]: 2 steps, then --resume to 3, in {secs:.2f} s (cold); losses "
+        f"{[{k: float(f'{v:.5g}') for k, v in r.items()} for r in losses]}; checkpoint {size:.0f} "
+        f"MiB at iteration {saved['iteration']}; spectral-norm u moved: {moved - len(still)} "
+        f"of {moved}")
+    if ([r["step"] for r in recs] != [0, 1, 2] or saved["iteration"] != 3 or still
+            or not all(math.isfinite(v) for r in losses for v in r.values())):
+        raise AssertionError(f"train_ec[{model} cli]: steps {recs}, u not moved {still}")
+
+
+def _ec_timed(model, vgg_path, device, card, profile=False):
+    """A fixed-batch loop at batch 4, 256^2: one warm-up step, 5 steps by CUDA
+    events, the peak memory; the batch maker's time (Canny on the card). With
+    ``profile``, a torch.profiler table of one more step: device busy time against
+    the median step, and the operators with the most device time."""
+    from future_urban_scene_generation_tpu_torch.cli import train as cli_train
+
+    trainer, state, make_batch = cli_train.family_setup(
+        model, seed=0, batch=EC_BATCH, lr=1e-4, image_size=EC_HW, device=device,
+        vgg_weights=vgg_path)
+    args = make_batch()
+    dg_ms = cuda_ms(make_batch, iters=3, warmup=1)
+    trainer.train_step(state, *args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, metrics = [], []
+    for _ in range(5):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        _, m = trainer.train_step(state, *args)
+        ev[1].record()
+        events.append(ev)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    times = [a.elapsed_time(b) for a, b in events]
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    first, last = ({k: float(f"{float(v):.5g}") for k, v in m.items()}
+                   for m in (metrics[0], metrics[-1]))
+    log(f"train_ec[{model}]: batch {EC_BATCH} at {EC_HW}^2, float32, step times "
+        f"{[round(t, 2) for t in times]} ms; median {med:.2f} ms = "
+        f"{EC_BATCH * 1000.0 / med:.2f} samples/s; peak memory {peak:.3f} GiB; datagen "
+        f"(edgeconnect_batch, Canny on the card) {dg_ms:.2f} ms per batch; losses {first} -> "
+        f"{last} on one fixed batch ({card})")
+    if not all(math.isfinite(float(v)) for m in metrics for v in m.values()):
+        raise AssertionError(f"train_ec[{model}]: non-finite losses")
+    if profile:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as tprofile
+
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer.train_step(state, *args)
+            torch.cuda.synchronize()
+        rows = prof.key_averages()
+        with open(os.path.join(OUT_DIR, f"profile_train_ec_{model}.txt"), "w") as fh:
+            fh.write(rows.table(sort_by="device_time_total", row_limit=60))
+        dev = sorted((e for e in rows if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+        busy = sum(e.self_device_time_total for e in dev) / 1e3
+        conv = {k: sum(e.device_time_total for e in rows if e.key == k) / 1e3
+                for k in ("aten::convolution", "aten::convolution_backward")}
+        log(f"train_ec[{model} profile]: device busy {busy:.2f} ms of the {med:.2f} ms median "
+            f"step (idle share {1.0 - busy / med:.3f}), {sum(e.count for e in dev)} device "
+            f"launches; convolution forward {conv['aten::convolution']:.2f} ms, backward "
+            f"{conv['aten::convolution_backward']:.2f} ms, the rest "
+            f"{busy - sum(conv.values()):.2f} ms; top kernels: " + ", ".join(
+                f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} x {e.count}" for e in dev[:6])
+            + f"; table in chiprun_out/profile_train_ec_{model}.txt")
+    return med
+
+
+def _ec_step_on_both(model, dtype, hw, device):
+    """One step of ``model``'s trainer from the same seeded state on the same batch of
+    2 (made on the CPU: seeded images, ``edgeconnect_batch``), on the CPU and on the
+    card, in ``dtype``. Returns {device: (losses, {net: grads}, {net: u})} and the
+    instance-norm-fed biases."""
+    from future_urban_scene_generation_tpu_torch.models.layers import seeded_init_
+    from future_urban_scene_generation_tpu_torch.models.vgg import VGG19Features
+    from future_urban_scene_generation_tpu_torch.pipeline import datagen, training
+
+    gen = torch.Generator().manual_seed(3)
+    images = torch.rand((2, hw, hw, 3), generator=gen)
+    sample = datagen.edgeconnect_batch(gen, images)
+    if model == "edge":
+        trainer, args = training.EdgeModelTrainer(), tuple(sample)
+    else:
+        trainer = training.InpaintingModelTrainer()
+        vgg = seeded_init_(VGG19Features(), gen).eval().requires_grad_(False)
+        args = (vgg, images, sample.edges, sample.masks)
+    out = {}
+    for dev in ("cpu", device):
+        state = trainer.init(torch.Generator().manual_seed(5), device=dev)
+        state.gen.to(dtype)
+        state.dis.to(dtype)
+        state.gen_opt, state.dis_opt = training.make_optimizers(state.gen, state.dis,
+                                                                trainer.lr)
+        _, metrics = trainer.train_step(state, *(a.to(dev, dtype) for a in args))
+        out[dev] = ({k: float(v) for k, v in metrics.items()},
+                    {net: {n: p.grad.double().cpu()
+                           for n, p in getattr(state, net).named_parameters()}
+                     for net in ("dis", "gen")},
+                    {net: {k: v.double().cpu() for k, v in getattr(state, net).state_dict().items()
+                           if k.endswith("weight_u")} for net in ("dis", "gen")})
+    return out, training.instance_norm_fed_biases(state)
+
+
+def _ec_gpu_vs_cpu(model, device):
+    """Card against CPU for one EdgeConnect trainer, at the bars of
+    ``_family_gpu_vs_cpu``: float32 losses rtol 1e-3 and gradients relative L2 5e-2 per
+    tensor; float64 losses rtol 1e-6, gradients atol 1e-6 * max|g|, and the advanced u
+    to 1e-9; instance-norm-fed biases near zero against their conv's weight gradient."""
+    hw, bad = EC_CPU_HW[model], []
+    for dtype, loss_tol, tol, metric in ((torch.float32, 1e-3, GPU_CPU_REL_L2, 1),
+                                         (torch.float64, 1e-6, 1e-6, 0)):
+        t0 = time.perf_counter()
+        res, zero = _ec_step_on_both(model, dtype, hw, device)
+        (lc, gc, uc), (lg, gg, ug) = res["cpu"], res[device]
+        bad += [f"{dtype} {k}" for k in lc if not abs(lg[k] - lc[k]) <= loss_tol * abs(lc[k])]
+        worst, u_err = {}, 0.0
+        for net in ("dis", "gen"):
+            dist = _grad_distances(gg[net], gc[net], zero, net)
+            bad += [f"{dtype} {net}.{n}" for n, d in dist.items() if not d[metric] <= tol]
+            bad += [f"{dtype} {net}.{n} (near zero)" for n, d in dist.items()
+                    if f"{net}.{n}" in zero and not d[0] <= 1e-4]
+            worst[net] = tuple(max(d[i] for n, d in dist.items() if f"{net}.{n}" not in zero)
+                               for i in (0, 1))
+            u_err = max([u_err] + [(ug[net][k] - uc[net][k]).abs().max().item() for k in uc[net]])
+        if dtype == torch.float64 and not u_err <= 1e-9:
+            bad.append(f"{dtype} advanced u {u_err:.3e}")
+        log(f"train_ec[{model} gpu_vs_cpu {dtype}]: batch 2 at {hw}^2 in "
+            f"{time.perf_counter() - t0:.1f} s; losses cpu {lc} gpu {lg} (rtol {loss_tol:g}); "
+            "gradients, worst max|diff| / max|g| and relative L2: " + ", ".join(
+                f"{net} {w[0]:.3e} / {w[1]:.3e}" for net, w in worst.items())
+            + f" (tol {tol:g} on {('max|diff| / max|g|', 'relative L2')[metric]}); advanced u "
+            f"max|diff| {u_err:.3e}")
+    if bad:
+        raise AssertionError(f"{model} step on the GPU disagrees with the CPU: {bad[:8]}")
+
+
+def _ec_served_equals_trained(runs, zoo, device, card):
+    """Export both runs with ``cli/export_zoo``, load the files back through
+    ``checkpoint.zoo_state_dict`` into ``edgeconnect.build_generators`` (strict), and
+    hold the served generators to the trained ones' eval-mode forward (the edge
+    generator's spectral norm from its stored u and v) at 1e-5 max abs."""
+    from future_urban_scene_generation_tpu_torch.cli import export_zoo
+    from future_urban_scene_generation_tpu_torch.models import edgeconnect
+    from future_urban_scene_generation_tpu_torch.pipeline import checkpoint
+
+    shutil.rmtree(zoo, ignore_errors=True)
+    export_zoo.main(["--runs", *(f"{m}={r}" for m, r in runs.items()), "--out", zoo])
+    served = dict(zip(("edge", "inpaint"), edgeconnect.build_generators(device=device)))
+    gen = torch.Generator().manual_seed(17)
+    errs = {}
+    for model, run in runs.items():
+        served[model].load_state_dict(checkpoint.zoo_state_dict(zoo, model), strict=True)
+        trained = (edgeconnect.EdgeGenerator(spectral=True) if model == "edge"
+                   else edgeconnect.InpaintGenerator())
+        trained.load_state_dict(torch.load(os.path.join(run, "checkpoint.pt"), map_location="cpu",
+                                           weights_only=True)["gen"], strict=True)
+        trained = trained.to(device).eval()
+        x = torch.rand((2, EC_HW, EC_HW, 3 if model == "edge" else 4), generator=gen).to(device)
+        with torch.no_grad():
+            errs[model] = (served[model](x) - trained(x)).abs().max().item()
+    log(f"train_ec[export -> serve]: cli/export_zoo -> zoo_state_dict -> build_generators "
+        f"(strict); served vs trained eval-mode forward, max abs {errs} (tol 1e-5; {card})")
+    if not all(e <= 1e-5 for e in errs.values()):
+        raise AssertionError(f"train_ec: the served generators are not the trained ones: {errs}")
+
+
+def phase_train_ec(device, card, profile=False):
+    """The EdgeConnect trainers at full width (8 residual blocks, 256^2, float32): the
+    CLI with a resume for both (the inpainting model with ``--vgg-weights``, a seeded
+    trunk in torchvision's layout), fixed-batch timed loops, one step on the card
+    against the CPU, and export -> serve. No kernel of the port is on this path: the
+    launch counters stay 0 over the CLI runs."""
+    from future_urban_scene_generation_tpu_torch.ops import cuda_conv, cuda_raster, detection
+
+    t0 = time.perf_counter()
+    vgg_path = os.path.join(OUT_DIR, "ec_vgg19.pth")
+    runs = {m: os.path.join(OUT_DIR, f"train_ec_{m}") for m in ("edge", "inpaint")}
+    zoo = os.path.join(OUT_DIR, "ec_zoo")
+    try:
+        _write_vgg19_trunk(vgg_path)
+        cuda_conv.SMALL_CIN_V2_LAUNCHES = cuda_conv.SMALL_CIN_LAUNCHES = cuda_conv.LAUNCHES = 0
+        cuda_raster.LAUNCHES = cuda_raster.INDEXED_LAUNCHES = detection.NMS_LAUNCHES = 0
+        _ec_cli("edge", runs["edge"], [], device)
+        _ec_cli("inpaint", runs["inpaint"], ["--vgg-weights", vgg_path], device)
+        launches = (cuda_conv.SMALL_CIN_V2_LAUNCHES, cuda_conv.SMALL_CIN_LAUNCHES,
+                    cuda_conv.LAUNCHES, cuda_raster.LAUNCHES, cuda_raster.INDEXED_LAUNCHES,
+                    detection.NMS_LAUNCHES)
+        log(f"train_ec: kernel launches in both CLI runs (K3, K4, K2, K1, K1', N1): {launches}")
+        if any(launches):
+            raise AssertionError("train_ec: a kernel of the port ran on the EdgeConnect path")
+        _ec_served_equals_trained(runs, zoo, device, card)
+        for model in runs:
+            _ec_timed(model, vgg_path if model == "inpaint" else None, device, card, profile)
+            torch.cuda.empty_cache()
+        for model in runs:
+            _ec_gpu_vs_cpu(model, device)
+    finally:
+        for path in (*runs.values(), zoo):
+            shutil.rmtree(path, ignore_errors=True)  # ~0.4 GB of checkpoints
+        if os.path.exists(vgg_path):
+            os.remove(vgg_path)
+    log(f"train_ec: phase in {time.perf_counter() - t0:.1f} s")
+
+
 def _drop_serving_data(ctx):
     if "service" in ctx:
         ctx["service"].close()
@@ -2395,6 +2654,8 @@ def main():
         _drop_serving_data(serving)  # ~130 MB of frames and results stay on the machine
     if "warmup" in phases:
         phase_warmup(smi)
+    if "train_ec" in phases:
+        phase_train_ec(device, smi, args.profile)
     log(f"phases {phases} passed in {time.perf_counter() - t_start:.1f} s after the build")
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)

@@ -1,16 +1,17 @@
 """Training CLI of the PyTorch port.
 
-Counterpart of the JAX package's cli/train.py (:25-200, 233-238): trains a model
-family on the synthetic on-device pairs of ``pipeline/datagen.py``, logs metrics as
-JSONL (``<out>/metrics.jsonl``) and checkpoints the whole train state
-(``<out>/checkpoint.pt``).
+Counterpart of the JAX package's cli/train.py (:25-238): trains a model family on
+the synthetic on-device pairs of ``pipeline/datagen.py``, logs metrics as JSONL
+(``<out>/metrics.jsonl``) and checkpoints the whole train state
+(``<out>/checkpoint.pt``); ``cli/export_zoo.py`` then writes a run's network into
+the reference's checkpoint tree for serving.
 
   python -m future_urban_scene_generation_tpu_torch.cli.train \\
       --model icn --steps 200 --batch 8 --out /tmp/icn_run \\
-      [--resume] [--save-interval 100] [--log-interval 10] [--device cuda]
+      [--resume] [--save-interval 100] [--log-interval 10] [--device cuda] \\
+      [--vgg-weights vgg19.pth]
 
-Models: icn | vunet | hourglass | cad (edge and inpaint wait with the inpaint branch
-and are refused).
+Models: icn | vunet | edge | inpaint | hourglass | cad
 
 * ``icn``: the full-width Warp&Learn generator (its 7x7 stem conv on kernel K3)
   against the multi-scale PatchGAN, on the JAX CLI's bank and frame (two
@@ -22,6 +23,12 @@ and are refused).
   the projected keypoints as Gaussian target heatmaps (sigma 2 on the quarter-size
   map), or the bank index as the label; ``--image-size`` other than 256 resamples
   the renders linearly.
+* ``edge``, ``inpaint``: EdgeConnect's two models on seeded uniform-noise images of
+  ``--image-size`` with their gray image, Canny edges and random box masks
+  (``datagen.edgeconnect_batch``), as the JAX CLI trains them. The inpainting
+  model's perceptual and style losses tap a VGG19 trunk: ``--vgg-weights`` a local
+  torch ``.pth`` (a torchvision vgg19 state dict or the CAD classifier's
+  ``cads/model.pth``); without it the trunk is random and the CLI warns loudly.
 
 ``--resume`` continues from the checkpoint's iteration up to ``--steps`` in every
 family (the JAX CLI does so for its GAN families and runs ``--steps`` more for
@@ -35,7 +42,6 @@ import argparse
 from pathlib import Path
 
 FAMILIES = ("icn", "vunet", "edge", "inpaint", "hourglass", "cad")
-PORTED = ("icn", "vunet", "hourglass", "cad")
 FRAME_HW = (360, 640)
 HEATMAP_SIGMA = 2.0
 
@@ -44,6 +50,9 @@ def build_parser():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model", required=True, choices=FAMILIES)
+    p.add_argument("--vgg-weights", type=Path, default=None,
+                   help="torch .pth with a VGG19 trunk (features.N.*) for the inpaint "
+                        "perceptual/style losses")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--lr", type=float, default=1e-4)
@@ -54,7 +63,7 @@ def build_parser():
     p.add_argument("--seed", type=int, default=10)  # config.py:36
     p.add_argument("--image-size", type=int, default=256,
                    help="training crop side (hourglass, cad: the 256x256 renders are "
-                        "resampled; icn, vunet: 256 only)")
+                        "resampled; icn, vunet: 256 only; edge, inpaint: any)")
     p.add_argument("--device", default="cuda")
     return p
 
@@ -94,7 +103,35 @@ def _variant_cad_bank(device):
                           scale=5.0, device=device)
 
 
-def family_setup(model: str, *, seed: int, batch: int, lr: float, image_size: int, device):
+VGG_WARNING = (
+    "=" * 72
+    + "\nWARNING: no --vgg-weights given — the inpaint perceptual/style losses"
+    "\nwill be computed against RANDOMLY INITIALIZED VGG19 features. Training"
+    "\nwill 'converge' but the losses are meaningless as fidelity signals."
+    "\nPass --vgg-weights path/to/vgg19.pth (torchvision state dict) for real"
+    "\ntraining (ref: edgeconnect/loss.py:102-224).\n" + "=" * 72
+)
+
+
+def loss_vgg(path, seed: int, *, device):
+    """The inpaint losses' frozen VGG19 trunk: loaded from ``path``, or drawn from
+    ``seed`` with the JAX CLI's warning (cli/train.py:203-230) when it is None."""
+    import torch
+
+    from future_urban_scene_generation_tpu_torch.models import vgg
+    from future_urban_scene_generation_tpu_torch.models.layers import seeded_init_
+
+    if path is not None:
+        net = vgg.load_vgg19_features(path, device=device)
+        print(f"loaded pretrained VGG19 features from {path}")
+        return net
+    print(VGG_WARNING)
+    net = seeded_init_(vgg.VGG19Features(), torch.Generator().manual_seed(seed))
+    return net.eval().requires_grad_(False).to(device)
+
+
+def family_setup(model: str, *, seed: int, batch: int, lr: float, image_size: int, device,
+                 vgg_weights=None):
     """(trainer, fresh train state, make_batch) of one family, where ``make_batch()``
     draws one batch from the family's seeded data source and returns the arguments
     of ``trainer.train_step`` after the state. The one place that says what each
@@ -105,9 +142,25 @@ def family_setup(model: str, *, seed: int, batch: int, lr: float, image_size: in
     from future_urban_scene_generation_tpu_torch.ops.resize import resize_linear
     from future_urban_scene_generation_tpu_torch.pipeline import datagen, training
 
-    generator, cad_bank, frame, intrinsic = icn_setup(seed, device)
     s = image_size
+    if model in ("edge", "inpaint"):
+        generator = torch.Generator().manual_seed(seed)
+        if model == "edge":
+            trainer = training.EdgeModelTrainer(lr=lr)
+        else:
+            trainer = training.InpaintingModelTrainer(lr=lr)
+            vgg = loss_vgg(vgg_weights, seed, device=device)
 
+        def make_batch():
+            images = torch.rand((batch, s, s, 3), generator=generator).to(device)
+            sample = datagen.edgeconnect_batch(generator, images)
+            if model == "edge":
+                return tuple(sample)
+            return vgg, images, sample.edges, sample.masks
+
+        return trainer, trainer.init(generator, device=device), torch.no_grad()(make_batch)
+
+    generator, cad_bank, frame, intrinsic = icn_setup(seed, device)
     if model == "icn":
         trainer = training.ICNTrainer(lr=lr)
 
@@ -143,10 +196,6 @@ def family_setup(model: str, *, seed: int, batch: int, lr: float, image_size: in
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.model not in PORTED:
-        parser.error(f"--model {args.model} is not ported to PyTorch yet (ported: "
-                     f"{', '.join(PORTED)}; the EdgeConnect trainers wait in ROADMAP.md "
-                     "queue 1, S9b, behind the inpaint branch, S7)")
     if args.image_size != 256 and args.model in ("icn", "vunet"):
         parser.error(f"--image-size: the {args.model} pairs are 256x256 sketch crops")
 
@@ -166,7 +215,7 @@ def main(argv=None):
     ckpt_path = args.out / "checkpoint.pt"
     trainer, state, make_batch = family_setup(
         args.model, seed=args.seed, batch=args.batch, lr=args.lr,
-        image_size=args.image_size, device=device)
+        image_size=args.image_size, device=device, vgg_weights=args.vgg_weights)
     if args.resume and ckpt_path.exists():
         checkpoint.restore(ckpt_path, state)
     for i in range(state.iteration, args.steps):

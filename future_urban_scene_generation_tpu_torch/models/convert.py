@@ -7,6 +7,13 @@ copied here as numpy code, not imported) maps a flax tree onto
 loads it. The reference's own ``.pth`` files load into the same modules directly,
 after :func:`fold_spectral_norm` where they were saved with spectral norm (the
 EdgeConnect edge generator).
+
+Spectral-norm triples are carried as trained: from a flax ``kernel`` (the raw W of
+``SNConv``) and the ``spectral`` collection's ``u``, ``weight_orig`` = W,
+``weight_u`` = u and ``weight_v`` = n(W_mat^T u), so a port module starts from the
+JAX trainer's exact state. (The JAX exporter instead treats the kernel as the
+folded weight and picks u, v with sigma = 1, which serves the raw W of a trained
+spectral layer: fault F8 of ROADMAP.md, not carried.)
 """
 from __future__ import annotations
 
@@ -37,21 +44,42 @@ def _lookup(tree: dict, path: Tuple[str, ...], leaf_name: str):
     return np.asarray(node[leaf_name])
 
 
+def _has_leaf(tree: dict, path: Tuple[str, ...], leaf_name: str) -> bool:
+    try:
+        _lookup(tree, path, leaf_name)
+    except KeyError:
+        return False
+    return True
+
+
+def _l2_normalize(v: np.ndarray) -> np.ndarray:
+    return v / (np.linalg.norm(v) + 1e-12)
+
+
 def export_state_dict(
     params: dict,
     template: Dict[str, Sequence[int]],
     convt_keys: Iterable[str] = (),
     flatten_linear_key: Optional[str] = None,
     flatten_linear_chw: Optional[Tuple[int, int, int]] = None,
+    spectral: Optional[dict] = None,
 ) -> Dict[str, np.ndarray]:
     """Flax params -> a state dict with ``template``'s keys (key -> shape):
-    conv kernels HWIO -> OIHW, conv-transpose kernels (keys in ``convt_keys``)
-    (kh,kw,in,out) -> (in,out,kh,kw), linear kernels transposed (with an optional
-    HWC -> CHW flatten permutation for ``flatten_linear_key``), batch-norm
-    gamma/beta/running stats, weight-norm v/g."""
+    conv kernels HWIO -> OIHW, conv-transpose kernels (keys in ``convt_keys``, or
+    their ``weight_orig`` twins) (kh,kw,in,out) -> (in,out,kh,kw), linear kernels
+    transposed (with an optional HWC -> CHW flatten permutation for
+    ``flatten_linear_key``), batch-norm gamma/beta/running stats, weight-norm v/g,
+    and spectral-norm triples from the kernel and ``spectral`` (the flax
+    'spectral' collection, ``u`` at each layer's path): W, u and n(W_mat^T u), in
+    float64 before the float32 cast. A template with a triple and no
+    ``spectral`` raises."""
     convt_keys = set(convt_keys)
     tree = params.get("params", params)
     bn_prefixes = {k[: -len("running_mean")] for k in template if k.endswith("running_mean")}
+    sn_prefixes = {k[: -len("weight_orig")] for k in template if k.endswith("weight_orig")}
+    if sn_prefixes and spectral is None:
+        raise ValueError("the template has spectral-norm triples: pass the 'spectral' "
+                         "collection for their u")
     out: Dict[str, np.ndarray] = {}
     for key in template:
         shape = tuple(int(s) for s in template[key])
@@ -62,10 +90,27 @@ def export_state_dict(
         if leaf == "num_batches_tracked":
             out[key] = np.asarray(0, np.int64)
             continue
-        if leaf == "weight":
+        if module_prefix in sn_prefixes and leaf in ("weight_u", "weight_v"):
+            continue  # written with weight_orig
+        if leaf == "weight_orig":
+            k_flax = _lookup(tree, path, "kernel")
+            if module_prefix + "weight" in convt_keys or key in convt_keys:
+                w = k_flax.transpose(2, 3, 0, 1)
+                w_mat = np.moveaxis(w, 1, 0).reshape(w.shape[1], -1)  # torch's dim=1
+            else:
+                w = k_flax.transpose(3, 2, 0, 1)
+                w_mat = w.reshape(w.shape[0], -1)
+            u = _lookup(spectral, path, "u").astype(np.float64)
+            out[key] = w
+            out[module_prefix + "weight_u"] = u
+            out[module_prefix + "weight_v"] = _l2_normalize(w_mat.astype(np.float64).T @ u)
+        elif leaf == "weight":
             if module_prefix in bn_prefixes:
                 out[key] = _lookup(tree, path, "gamma")
             elif len(shape) == 4:
+                if spectral is not None and _has_leaf(spectral, path, "u"):
+                    raise ValueError(f"{key}: the flax layer is spectral-normed, the "
+                                     "template's is plain")
                 k_flax = _lookup(tree, path, "kernel")
                 out[key] = (k_flax.transpose(2, 3, 0, 1) if key in convt_keys
                             else k_flax.transpose(3, 2, 0, 1))
@@ -100,14 +145,15 @@ def export_state_dict(
 def load_jax_params(module: torch.nn.Module, params_numpy: dict,
                     convt_keys: Iterable[str] = (),
                     flatten_linear_key: Optional[str] = None,
-                    flatten_linear_chw: Optional[Tuple[int, int, int]] = None
-                    ) -> torch.nn.Module:
+                    flatten_linear_chw: Optional[Tuple[int, int, int]] = None,
+                    spectral: Optional[dict] = None) -> torch.nn.Module:
     """Load a flax parameter tree (numpy leaves) into ``module`` with
     ``load_state_dict(strict=True)``; the template is the module's own state
-    dict (key -> shape)."""
+    dict (key -> shape). ``spectral``: the flax 'spectral' collection (numpy
+    leaves) of a module with spectral-norm layers."""
     template = {k: tuple(v.shape) for k, v in module.state_dict().items()}
     sd = export_state_dict(params_numpy, template, convt_keys, flatten_linear_key,
-                           flatten_linear_chw)
+                           flatten_linear_chw, spectral)
     ref = module.state_dict()
     module.load_state_dict(
         {k: torch.as_tensor(np.array(v)).to(ref[k].dtype) for k, v in sd.items()}, strict=True

@@ -1,9 +1,10 @@
 """Torch-convention building blocks that run on NHWC tensors.
 
 Counterpart of the subset of the JAX package's models/layers.py the scene networks
-and the ICN trainer use: the plain conv (``TorchConv`` :612) and the
+and the trainers use: the plain conv (``TorchConv`` :612) and the
 weight-normalized conv (``WNConv`` :831), both dispatching gated convs to kernel K3
-as ``_dispatch_conv`` (:588) does, ``instance_norm`` (:865) with float32
+as ``_dispatch_conv`` (:588) does, the training-mode spectral-norm conv and
+transposed conv (``SNConv`` :714, ``SNConvTranspose`` :771), ``instance_norm`` (:865) with float32
 statistics, ``avg_pool_torch`` (:943), the ICN's
 ``WarpLearnLayerNorm`` (:879), TF-ordered ``depth_to_space`` (:968) and the nearest
 2x upsample the ICN decoder composes with a reflect-padded 5x5 conv, as the plain
@@ -152,6 +153,99 @@ class WNConv2d(nn.Module):
         return conv_nhwc(x, self.effective_weight(), self.bias, self.stride, self.padding)
 
 
+def l2_normalize(v, eps: float = 1e-12):
+    """v / (||v|| + eps), the JAX package's ``_l2_normalize`` (layers.py:827); not
+    ``F.normalize``, which divides by max(||v||, eps)."""
+    return v / (torch.linalg.vector_norm(v) + eps)
+
+
+class _SpectralNorm(nn.Module):
+    """torch's ``spectral_norm`` state under its names (parameters ``weight_orig``
+    and ``bias``, buffers ``weight_u`` and ``weight_v``), with the JAX package's
+    schedule: the power iteration advances once per training step, when the trainer
+    calls :meth:`advance_`, and not at every forward as torch's does.
+
+    In training mode a forward takes one power iteration from the stored u without
+    writing it back, v = n(W^T u), u' = n(W v), and uses W / sigma with sigma =
+    u' . (W v), the gradient flowing through W only (SNConv, layers.py:714-769). In
+    eval mode it uses the stored u and v, which is torch's eval-mode weight and what
+    ``convert.fold_spectral_norm`` computes from the state dict. ``dim`` is the
+    normalized axis of ``weight_orig``: 0 for a conv, 1 for a transposed conv.
+    ``layers.seeded_init_`` draws W, u and v."""
+
+    dim: int
+
+    def _init_sn(self, shape, bias: bool):
+        self.bias = nn.Parameter(torch.zeros(shape[self.dim])) if bias else None
+        self.weight_orig = nn.Parameter(torch.empty(shape))
+        rows = shape[self.dim]
+        self.register_buffer("weight_u", torch.zeros(rows))
+        self.register_buffer("weight_v", torch.zeros(math.prod(shape) // rows))
+
+    def _w_mat(self, w):
+        return w.movedim(self.dim, 0).reshape(w.shape[self.dim], -1)
+
+    def _power_iteration(self):
+        with torch.no_grad():
+            w_mat = self._w_mat(self.weight_orig)
+            v = l2_normalize(w_mat.T @ self.weight_u)
+            return l2_normalize(w_mat @ v), v
+
+    def effective_weight(self):
+        if self.training:
+            u, v = self._power_iteration()
+        else:
+            u, v = self.weight_u, self.weight_v
+        sigma = torch.dot(u, self._w_mat(self.weight_orig) @ v)
+        return self.weight_orig / sigma
+
+    @torch.no_grad()
+    def advance_(self) -> None:
+        """One power iteration from the stored u with the current W, written back."""
+        u, v = self._power_iteration()
+        self.weight_u.copy_(u)
+        self.weight_v.copy_(v)
+
+
+class SNConv2d(_SpectralNorm):
+    """Spectral-normalized torch Conv2d (OIHW ``weight_orig``) with an NHWC forward."""
+
+    dim = 0
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, padding: int = 0,
+                 dilation: int = 1, bias: bool = True):
+        super().__init__()
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+        self._init_sn((cout, cin, k, k), bias)
+
+    def forward(self, x):
+        return conv_nhwc(x, self.effective_weight(), self.bias, self.stride, self.padding,
+                         self.dilation)
+
+
+class SNConvTranspose2d(_SpectralNorm):
+    """Spectral-normalized torch ConvTranspose2d (``weight_orig`` (in, out, kh, kw),
+    normalized along dim 1 as torch's spectral_norm does) with an NHWC forward."""
+
+    dim = 1
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 2, padding: int = 1):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self._init_sn((cin, cout, k, k), True)
+
+    def forward(self, x):
+        return conv_transpose_nhwc(x, self.effective_weight(), self.bias, self.stride,
+                                   self.padding)
+
+
+def advance_spectral_norm_(module: nn.Module) -> None:
+    """Advance every spectral-norm layer of ``module`` by one power iteration."""
+    for m in module.modules():
+        if isinstance(m, _SpectralNorm):
+            m.advance_()
+
+
 def instance_norm(x, eps: float = 1e-5):
     """torch InstanceNorm2d defaults on NHWC: per-sample, per-channel, biased
     variance, no affine. Statistics in float32 (float64 for float64 inputs),
@@ -234,10 +328,11 @@ def seeded_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Deterministic random init from an explicit generator, in the JAX package's
     scheme: conv/linear weights ~ N(0, 1/fan_in) (lecun normal), biases 0,
     weight-norm g = 1, ICN LayerNorm gamma ~ U(0, 1), batch norms at identity
-    statistics. Parameters are drawn on the CPU, in ``named_parameters`` order."""
+    statistics, spectral-norm u and v random unit vectors (torch's init). Parameters
+    are drawn on the CPU, in ``named_parameters`` order, then the buffers."""
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in ("weight", "weight_v") and p.dim() >= 2:
+        if leaf in ("weight", "weight_v", "weight_orig") and p.dim() >= 2:
             fan_in = p[0].numel()
             p.copy_(torch.randn(p.shape, generator=generator) / math.sqrt(fan_in))
         elif leaf == "gamma":
@@ -251,4 +346,6 @@ def seeded_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             b.fill_(1.0)
         elif name.endswith("running_mean"):
             b.zero_()
+        elif name.endswith(("weight_u", "weight_v")):
+            b.copy_(l2_normalize(torch.randn(b.shape, generator=generator)))
     return module

@@ -2,18 +2,22 @@
 
 Counterpart of the JAX package's pipeline/datagen.py ``_random_pose`` (:55),
 ``_vehicle_views`` (:65), ``icn_batch`` (:91), ``vunet_batch`` (:137), ``cad_batch``
-(:171) and ``hourglass_batch`` (:200). The JAX version draws from a key inside a
-vmapped function; here every family is split in two:
+(:171), ``hourglass_batch`` (:200) and ``edgeconnect_batch`` (:232). The JAX
+version draws from a key inside a vmapped function; here every family is split in
+two:
 
 * the random draws from an explicit ``torch.Generator``, made on the CPU:
   :func:`icn_draws` (CAD index, yaw U(0, 2 pi), tilt U(-1.45, -1.1), distance
   U(12, 28), heading delta U(-0.6, 0.6); the VUNet pairs take the same draws) and
-  :func:`pose_draws` (CAD index and pose, for the classifier and the hourglass);
+  :func:`pose_draws` (CAD index and pose, for the classifier and the hourglass),
+  :func:`edgeconnect_draws` (each box mask's corner);
 * a deterministic pair maker, batched over B, with every render of a batch in one
   kernel-K1 launch: :func:`icn_pairs` (src and dst views, visibility, plane
   polygons, the src sketch pasted into the frame as texture, the per-sample source
   table as ``runner.scene_geometry`` builds it, the plane warps),
-  :func:`vunet_pairs`, :func:`cad_pairs`, :func:`hourglass_pairs`.
+  :func:`vunet_pairs`, :func:`cad_pairs`, :func:`hourglass_pairs`, and
+  :func:`edgeconnect_pairs` (gray image, Canny edges and box masks of a batch of
+  images, for the EdgeConnect trainers).
 
 A test can therefore feed the JAX package's own draws to the pair makers.
 Samples are float32 NHWC. ICN, signed LAB ([-1, 1]): x = [dst sketch (3) | central
@@ -21,6 +25,7 @@ prior (3) | 5 warped planes (15)], y = the dst view of the textured vehicle, mas
 VUNet, [-1, 1]: y_tilde = dst sketch, x_app = [masked vehicle crop | src sketch],
 target = the masked dst view. Classifier: [0, 1] sketch renders and their bank index.
 Hourglass: [0, 1] sketch renders and the 12 keypoints in crop coordinates, [0, 1].
+EdgeConnect: [0, 1] gray image, {0, 1} edges and masks (1 = hole), one channel each.
 """
 from __future__ import annotations
 
@@ -31,6 +36,8 @@ import torch
 
 from future_urban_scene_generation_tpu_torch.geometry.projection import project_points_extrinsic
 from future_urban_scene_generation_tpu_torch.geometry.rotations import x_rot, z_rot
+from future_urban_scene_generation_tpu_torch.ops import canny as cn
+from future_urban_scene_generation_tpu_torch.ops import colorspace as cs
 from future_urban_scene_generation_tpu_torch.ops import crop as cr
 from future_urban_scene_generation_tpu_torch.pipeline import stages
 from future_urban_scene_generation_tpu_torch.pipeline.stages import CadBank
@@ -222,3 +229,40 @@ def hourglass_batch(generator: torch.Generator, cad_bank: CadBank, intrinsic,
     """A batch of keypoint pairs: :func:`pose_draws` then :func:`hourglass_pairs`."""
     return hourglass_pairs(cad_bank, intrinsic,
                            pose_draws(generator, cad_bank.vertices.shape[0], batch))
+
+
+class EdgeConnectSample(NamedTuple):
+    gray: torch.Tensor  # (B, H, W, 1) [0, 1]
+    edges: torch.Tensor  # (B, H, W, 1) {0, 1} Canny edges of gray
+    masks: torch.Tensor  # (B, H, W, 1) {0, 1}, an (H // 3) x (W // 3) box of 1 (hole)
+
+
+def edgeconnect_draws(generator: torch.Generator, batch: int, hw):
+    """Each mask's top-left corner: (y0, x0), (B,) int64, y0 ~ U{0, H/2 - 1},
+    x0 ~ U{0, W/2 - 1} (JAX datagen.py:243-246)."""
+    h, w = hw
+    y0 = torch.randint(0, h // 2, (batch,), generator=generator)
+    x0 = torch.randint(0, w // 2, (batch,), generator=generator)
+    return y0, x0
+
+
+def edgeconnect_pairs(images, y0, x0, sigma: float = 2.0) -> EdgeConnectSample:
+    """The EdgeConnect trainers' inputs from (B, H, W, 3) RGB images in [0, 1] and
+    the mask corners: the gray image (``colorspace.rgb_to_gray``), its Canny edges
+    (the batched ``ops/canny``, ``sigma``) and the (H // 3) x (W // 3) box masks."""
+    b, h, w, _ = images.shape
+    gray = cs.rgb_to_gray(images)
+    edges = cn.canny(gray[..., 0], sigma=sigma).to(images.dtype)[..., None]
+    dev = images.device
+    y0, x0 = y0.to(dev)[:, None, None], x0.to(dev)[:, None, None]
+    ys = torch.arange(h, device=dev)[None, :, None]
+    xs = torch.arange(w, device=dev)[None, None, :]
+    box = (ys >= y0) & (ys < y0 + h // 3) & (xs >= x0) & (xs < x0 + w // 3)
+    return EdgeConnectSample(gray, edges, box.to(images.dtype)[..., None])
+
+
+def edgeconnect_batch(generator: torch.Generator, images, sigma: float = 2.0
+                      ) -> EdgeConnectSample:
+    """:func:`edgeconnect_draws` then :func:`edgeconnect_pairs`."""
+    return edgeconnect_pairs(images, *edgeconnect_draws(generator, images.shape[0],
+                                                        images.shape[1:3]), sigma=sigma)

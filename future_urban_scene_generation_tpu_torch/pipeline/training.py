@@ -1,17 +1,26 @@
-"""Training: the ICN (Warp&Learn) GAN trainer and the three single-network trainers
-(VUNet, hourglass, CAD classifier), with their train states.
+"""Training: the three GAN trainers (ICN / Warp&Learn, EdgeConnect's edge and
+inpainting models) and the three single-network trainers (VUNet, hourglass, CAD
+classifier), with their train states.
 
 Counterpart of the JAX package's pipeline/training.py ``make_optimizers`` (:44),
 ``GANTrainState`` (:30), ``ICNTrainer`` (:158), ``HourglassTrainer`` (:91),
-``CadClassifierTrainer`` (:133) and ``VunetTrainer`` (:217). ICN: LSGAN over the
-multi-scale PatchGAN plus 10x L1, Adam with betas (0.0, 0.9), the discriminator at
-0.1x the generator's rate (edgeconnect/config.py:42-45).
+``CadClassifierTrainer`` (:133), ``VunetTrainer`` (:217), ``EdgeModelTrainer``
+(:275) and ``InpaintingModelTrainer`` (:372). Every GAN trainer uses Adam with
+betas (0.0, 0.9), the discriminator at 0.1x the generator's rate
+(edgeconnect/config.py:42-45). ICN: LSGAN over the multi-scale PatchGAN plus 10x
+L1. Edge: nsgan plus 10x feature matching (edgeconnect/models.py:87-128).
+Inpainting: 0.01x nsgan plus L1 / mean(mask) plus the perceptual and style losses
+on VGG19 taps (models.py:184-234).
 
 The step order is JAX's: a discriminator step on the detached fake, then a
-generator step of ``adv + l1_weight * L1`` against the updated discriminator. The
-generator's parameters do not change between the two, so one generator forward
-whose graph is kept serves both. The input dtype sets the compute dtype, as in
-the JAX package: bfloat16 inputs give bfloat16 convs (the ICN stem on kernel K3)
+generator step against the updated discriminator. The generator's parameters do
+not change between the two, so one generator forward whose graph is kept serves
+both. The EdgeConnect networks carry training-mode spectral norm
+(``layers.SNConv2d``): every forward of a step takes its power iteration from the
+stored u, and the trainer advances u once, after both updates
+(``layers.advance_spectral_norm_``; JAX training.py:357-362, PARITY.md §12); u and
+v are module buffers, so a checkpoint carries them. The input dtype sets the
+compute dtype, as in the JAX package: bfloat16 inputs give bfloat16 convs (the ICN stem on kernel K3)
 with float32 parameters, gradients and normalization statistics; the losses are
 taken in float32 (float64 steps, used as a reference, stay float64 throughout).
 After a step each parameter's ``.grad`` holds the gradient its optimizer used.
@@ -25,6 +34,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from future_urban_scene_generation_tpu_torch.models import edgeconnect as ec
 from future_urban_scene_generation_tpu_torch.models.icn import (
     DNLayersMulti,
     GResnet,
@@ -32,8 +42,11 @@ from future_urban_scene_generation_tpu_torch.models.icn import (
     gan_loss,
 )
 from future_urban_scene_generation_tpu_torch.models.hourglass import HourglassNet
-from future_urban_scene_generation_tpu_torch.models.layers import seeded_init_
-from future_urban_scene_generation_tpu_torch.models.vgg import VGG19Classifier
+from future_urban_scene_generation_tpu_torch.models.layers import (
+    advance_spectral_norm_,
+    seeded_init_,
+)
+from future_urban_scene_generation_tpu_torch.models.vgg import VGG19Classifier, VGG19Features
 from future_urban_scene_generation_tpu_torch.models.vunet import Vunet
 
 
@@ -76,7 +89,11 @@ def instance_norm_fed_biases(state: GANTrainState):
     """Names (``gen.*`` / ``dis.*``) of the conv biases that feed an affine-free
     instance norm. The norm subtracts them again, so their gradient is zero in
     exact arithmetic and its computed value is rounding noise: gradient
-    comparisons hold these to being near zero instead of to each other."""
+    comparisons hold these to being near zero instead of to each other. (In the
+    EdgeConnect generators every conv bias but the last conv's.)"""
+    if isinstance(state.gen, (ec.EdgeGenerator, ec.InpaintGenerator)):
+        return {f"gen.{n}" for n, _ in state.gen.named_parameters()
+                if n.endswith(".bias") and not n.startswith("decoder.7.")}
     names = set()
     for n, m in state.gen.named_modules():
         if getattr(m, "norm_type", None) == "inst":
@@ -135,6 +152,122 @@ class ICNTrainer:
         adv, l1 = self.gen_step(state, fake, targets)
         state.iteration += 1
         return state, {"l_d": dis_loss, "l_g": adv, "l_l1": l1}
+
+
+# ---------------------------------------------------------------------------
+# EdgeConnect
+# ---------------------------------------------------------------------------
+
+
+def _discriminator_step(state: GANTrainState, real, fake, kind: str) -> torch.Tensor:
+    """The EdgeConnect discriminator's half of a step on a detached ``fake``: the
+    mean of the real and fake adversarial losses, gradients, Adam update. Returns
+    the loss."""
+    d_real, _ = state.dis(real)
+    d_fake, _ = state.dis(fake)
+    loss = 0.5 * (ec.adversarial_loss(_loss_dtype(d_real), True, True, kind)
+                  + ec.adversarial_loss(_loss_dtype(d_fake), False, True, kind))
+    state.dis_opt.zero_grad(set_to_none=True)
+    loss.backward(inputs=list(state.dis.parameters()))
+    state.dis_opt.step()
+    return loss.detach()
+
+
+def _edgeconnect_state(gen: nn.Module, dis_channels: int, trainer, generator: torch.Generator,
+                       device) -> GANTrainState:
+    """``gen`` and a spectral-normed discriminator on ``dis_channels``, drawn from
+    ``generator``, in training mode on ``device``, with their optimizers."""
+    dis = ec.ECDiscriminator(dis_channels, use_sigmoid=trainer.gan_kind != "hinge")
+    gen, dis = (seeded_init_(net, generator).to(device).train() for net in (gen, dis))
+    return GANTrainState(gen, dis, *make_optimizers(gen, dis, trainer.lr))
+
+
+def _generator_update(state: GANTrainState, loss: torch.Tensor) -> None:
+    state.gen_opt.zero_grad(set_to_none=True)
+    loss.backward(inputs=list(state.gen.parameters()))
+    state.gen_opt.step()
+
+
+class EdgeModelTrainer:
+    """EdgeModel.process (edgeconnect/models.py:87-128): the spectral-normed edge
+    generator against a spectral-normed discriminator on (gray, edges), nsgan plus
+    ``fm_weight`` x feature matching against the real input's detached taps."""
+
+    def __init__(self, fm_weight: float = 10.0, lr: float = 1e-4, gan_kind: str = "nsgan",
+                 residual_blocks: int = ec.RESIDUAL_BLOCKS):
+        self.fm_weight, self.lr, self.gan_kind = fm_weight, lr, gan_kind
+        self.residual_blocks = residual_blocks
+
+    def init(self, generator: torch.Generator, *, device) -> GANTrainState:
+        """Fresh networks in training mode, drawn from ``generator``, on ``device``."""
+        return _edgeconnect_state(ec.EdgeGenerator(self.residual_blocks, spectral=True), 2,
+                                  self, generator, device)
+
+    def train_step(self, state: GANTrainState, images_gray, edges, masks
+                   ) -> Tuple[GANTrainState, Dict[str, torch.Tensor]]:
+        """(B, H, W, 1) gray image, edges and masks in [0, 1]. Updates ``state`` in
+        place and returns it with the step's losses (0-d tensors, no host sync)."""
+        outputs = ec.edge_model_forward(state.gen, images_gray, edges, masks)
+        real_in = torch.cat([images_gray, edges], dim=-1)
+        dis_loss = _discriminator_step(
+            state, real_in, torch.cat([images_gray, outputs.detach()], dim=-1), self.gan_kind)
+        d_fake, fake_feat = state.dis(torch.cat([images_gray, outputs], dim=-1))
+        with torch.no_grad():
+            _, real_feat = state.dis(real_in)
+        adv = ec.adversarial_loss(_loss_dtype(d_fake), True, False, self.gan_kind)
+        fm = sum(torch.mean(torch.abs(_loss_dtype(f) - _loss_dtype(r)))
+                 for f, r in zip(fake_feat, real_feat))
+        _generator_update(state, adv + self.fm_weight * fm)
+        advance_spectral_norm_(state.dis)
+        advance_spectral_norm_(state.gen)
+        state.iteration += 1
+        return state, {"l_d1": dis_loss, "l_g1": adv.detach(), "l_fm": fm.detach()}
+
+
+class InpaintingModelTrainer:
+    """InpaintingModel.process (edgeconnect/models.py:184-234): the inpaint
+    generator against a spectral-normed discriminator on RGB, ``adv_weight`` x nsgan
+    plus ``l1_weight`` x L1 / mean(mask) plus the perceptual and style losses on a
+    frozen ``VGG19Features`` (handed to each step, as the JAX step takes its
+    parameters)."""
+
+    def __init__(self, adv_weight: float = 0.01, l1_weight: float = 1.0,
+                 content_weight: float = 1.0, style_weight: float = 1.0, lr: float = 1e-4,
+                 gan_kind: str = "nsgan", residual_blocks: int = ec.RESIDUAL_BLOCKS):
+        self.weights = (adv_weight, l1_weight, content_weight, style_weight)
+        self.lr, self.gan_kind = lr, gan_kind
+        self.residual_blocks = residual_blocks
+
+    def init(self, generator: torch.Generator, *, device) -> GANTrainState:
+        """Fresh networks in training mode, drawn from ``generator``, on ``device``."""
+        return _edgeconnect_state(ec.InpaintGenerator(self.residual_blocks), 3, self,
+                                  generator, device)
+
+    def train_step(self, state: GANTrainState, vgg: VGG19Features, images, edges, masks
+                   ) -> Tuple[GANTrainState, Dict[str, torch.Tensor]]:
+        """(B, H, W, 3) images, (B, H, W, 1) edges and masks, all in [0, 1]; ``vgg``
+        frozen (``requires_grad`` off: the generator's backward goes through its
+        input only). The targets' features are taken without a graph."""
+        adv_w, l1_w, content_w, style_w = self.weights
+        outputs = ec.inpaint_model_forward(state.gen, images, edges, masks)
+        dis_loss = _discriminator_step(state, images, outputs.detach(), self.gan_kind)
+        d_fake, _ = state.dis(outputs)
+        out32, img32 = _loss_dtype(outputs), _loss_dtype(images)
+        adv = ec.adversarial_loss(_loss_dtype(d_fake), True, False, self.gan_kind) * adv_w
+        l1 = torch.mean(torch.abs(out32 - img32)) * l1_w / torch.mean(_loss_dtype(masks))
+
+        def taps(x):
+            return {k: _loss_dtype(v) for k, v in vgg(x).items()}
+
+        with torch.no_grad():
+            feats_y, feats_ym = taps(images), taps(images * masks)
+        content = ec.perceptual_loss(taps(outputs), feats_y) * content_w
+        style = ec.style_loss(taps(outputs * masks), feats_ym) * style_w
+        _generator_update(state, adv + l1 + content + style)
+        advance_spectral_norm_(state.dis)
+        state.iteration += 1
+        return state, {"l_d2": dis_loss, "l_g2": adv.detach(), "l_l1": l1.detach(),
+                       "l_per": content.detach(), "l_sty": style.detach()}
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from future_urban_scene_generation_tpu_torch.examples import demo_synthetic
-from future_urban_scene_generation_tpu_torch.models import detector, edgeconnect, maskrcnn
+from future_urban_scene_generation_tpu_torch.models import detector, edgeconnect, maskrcnn, vgg
 from future_urban_scene_generation_tpu_torch.pipeline import tracking
 from future_urban_scene_generation_tpu_torch.pipeline import runner, stages, synthetic, training
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
@@ -32,7 +32,8 @@ def test_every_module_imports_without_jax():
     assert len(modules) > 40 and f"{PKG.name}.cli.run_test" in modules
     for new in ("gui.web", "gui.app", "cli.warmup", "ops.heatmap", "ops.canny",
                 "ops.morphology", "ops.detection", "models.edgeconnect", "models.maskrcnn",
-                "models.detector", "pipeline.inpaint", "utils.yamlite"):
+                "models.detector", "pipeline.inpaint", "utils.yamlite", "models.vgg",
+                "ops.metrics", "cli.export_zoo"):
         assert f"{PKG.name}.{new}" in modules
     code = (
         "import importlib, sys\n"
@@ -56,7 +57,8 @@ def test_every_module_imports_without_jax():
     runner.build_cad_bank, synthetic.make_bench_scene, synthetic.oracle_perception,
     stages.Models.build, training.ICNTrainer.init, training.VunetTrainer.init,
     training.HourglassTrainer.init, training.CadClassifierTrainer.init,
-    edgeconnect.build_generators, maskrcnn.MaskRCNN.build,
+    training.EdgeModelTrainer.init, training.InpaintingModelTrainer.init,
+    vgg.load_vgg19_features, edgeconnect.build_generators, maskrcnn.MaskRCNN.build,
     detector.MeshSilhouetteSegmenter.__init__, detector.BackgroundDiffSegmenter.__init__,
     detector.HostDetectorSegmenter.__init__, detector.MaskRCNNSegmenter.__init__,
     tracking.MaskRCNNDetector.__init__,

@@ -1,7 +1,8 @@
 """``cli.train`` of the PyTorch port for the VUNet, hourglass and CAD-classifier
 families on the CPU: one step, ``--resume`` to two (continuing from the saved
 iteration), the widened checkpoint's round trip, and the saved network loading
-strict into the scene's ``Models``. (The ICN family: tests/test_torch_training.py.)
+strict into the scene's ``Models``. (The ICN family: tests/test_torch_training.py;
+the EdgeConnect pair: tests/test_torch_train_chain.py.)
 """
 import json
 
@@ -56,14 +57,19 @@ def test_cli_trains_resumes_and_serves(tmp_path, model, field, size):
         checkpoint.restore(out / "checkpoint.pt", icn_state)
 
 
-def test_cli_refuses_what_it_cannot_train(capsys):
-    for argv in (["--model", "inpaint", "--device", "cpu"],
-                 ["--model", "vunet", "--device", "cpu", "--image-size", "128"]):
-        with pytest.raises(SystemExit) as exc:
-            cli_train.main(argv)
-        assert exc.value.code != 0
-    err = capsys.readouterr().err
-    assert "S9b" in err and "256x256" in err
+def test_cli_refuses_what_it_cannot_train(capsys, tmp_path):
+    with pytest.raises(SystemExit) as exc:
+        cli_train.main(["--model", "vunet", "--device", "cpu", "--image-size", "128"])
+    assert exc.value.code != 0
+    assert "256x256" in capsys.readouterr().err
+    # The inpainting model parses and trains (one step at 32^2; its chain:
+    # tests/test_torch_train_chain.py).
+    out = tmp_path / "inpaint"
+    assert cli_train.main(["--model", "inpaint", "--device", "cpu", "--image-size", "32",
+                           "--batch", "1", "--steps", "1", "--log-interval", "1",
+                           "--out", str(out)]) == 0
+    rec = json.loads((out / "metrics.jsonl").read_text())
+    assert np.isfinite([rec[k] for k in ("l_d2", "l_g2", "l_l1", "l_per", "l_sty")]).all()
     assert cli_train.build_parser().get_default("device") == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
