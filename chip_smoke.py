@@ -18,10 +18,17 @@ version and ``TrackingStreamRunner`` with ``MaskRCNNDetector``. The train_ec pha
 trains EdgeConnect's edge and inpainting models at full width through ``cli.train``
 (batch 4, 256^2, a resume, ``--vgg-weights``), times them, holds one step on the card
 against the CPU, and serves the runs back through ``cli/export_zoo`` and the zoo
-loader; no kernel of the port is on that path.
+loader; no kernel of the port is on that path. The int8 phase drives the int8 serving
+tier (``ModelSpec.quantized_convs``): kernel N2 against its plain version bit for bit
+at every conv shape the quantized bench scene and the quantized erase launch it at
+(plus a transposed, a dilated and an all-+127 case), the card's codes against the
+CPU's, N2's times beside ``torch._int_mm`` and cuDNN's bf16 conv as yardsticks, the
+JAX package's quality bars at full width, then ``run_scene`` on the bench scene with
+the tier on.
 
     python3 chip_smoke.py                    # every phase, one GPU
     python3 chip_smoke.py --phases k3,train  # a subset (device and build always run)
+    python3 chip_smoke.py --phases int8      # the int8 tier and kernel N2 alone
     python3 chip_smoke.py --profile          # also profile one scene and one EdgeConnect step each
 
 The k1 phase holds K1 and K1' (two CUDA launches a call: triangle setup, tiles) at
@@ -30,13 +37,14 @@ kernel's table bit for bit, the tile kernel's per-tile counts, images and masks;
 profiled call must show those two kernels on the device and nothing else.
 
 Kernel launches in the ``kernels`` line, each counted over its own path with the
-counters set to 0 just before: K1 and K2 from the main phase's scenes, K3 from the
-train phase's CLI run, K1' from the demo, N1 from the maskrcnn phase's CLI request (N1
-ports no TPU kernel: the JAX package's NMS is a ``lax.scan``); K4's entry has no caller
-on any path.
+counters set to 0 just before: K1 and K2 from the main phase's scenes, N2 from the
+int8 phase's quantized scenes, K3 from the train phase's CLI run, K1' from the demo,
+N1 from the maskrcnn phase's CLI request (N1 and N2 port no TPU kernel: the JAX
+package's NMS is a ``lax.scan``, its int8 conv an XLA convolution); K4's entry has no
+caller on any path.
 ``bound_ms`` is the larger of bytes over 3.35 TB/s and operations over the card's
 peak for the kernel's type (the H100 SXM's published 67 TFLOP/s float32, 989 TFLOP/s
-bf16), from this run's inputs (the raster's operations are counted from the bboxes of
+bf16, 1,979 TOP/s int8), from this run's inputs (the raster's operations are counted from the bboxes of
 the triangles it is given, by brute force); ``library_ms`` is one PyTorch call computing the same
 function, timed here and used nowhere in the port.
 
@@ -60,8 +68,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-ALL_PHASES = ("k1", "k2", "k3", "gpu_vs_cpu", "main", "train", "demo", "serve", "stream",
-              "multi", "warmup", "web", "inpaint", "maskrcnn", "train_ec")
+ALL_PHASES = ("k1", "k2", "k3", "gpu_vs_cpu", "main", "int8", "train", "demo", "serve",
+              "stream", "multi", "warmup", "web", "inpaint", "maskrcnn", "train_ec")
 # Published peaks of one H100 SXM: device memory bytes/s, float32 FLOP/s outside the
 # tensor cores, dense bf16 FLOP/s.
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -166,9 +174,10 @@ def phase_build():
         for line in sass.splitlines():
             if "Function :" in line:
                 fn = line.split(":")[1].strip()
-            elif "HMMA." in line or "HGMMA." in line:
-                key = (fn, "wgmma (HGMMA)" if "HGMMA." in line else "mma.sync (HMMA)")
-                counts[key] = counts.get(key, 0) + 1
+            elif "HMMA." in line or "HGMMA." in line or "IMMA." in line:
+                kind = ("wgmma (HGMMA)" if "HGMMA." in line else
+                        "int8 mma.sync (IMMA)" if "IMMA." in line else "mma.sync (HMMA)")
+                counts[(fn, kind)] = counts.get((fn, kind), 0) + 1
         for (fn, kind), n in sorted(counts.items()):
             log(f"  sass: {kind} x {n} in {fn[:60]}")
         found = (len({fn for fn, kind in counts if "conv_mma_kernel" in fn and "HMMA" in kind}),
@@ -176,6 +185,9 @@ def phase_build():
         if found != (4, 2):
             raise AssertionError(f"{found} of the (4 mma.sync, 2 wgmma) bf16 conv kernels hold "
                                  "their tensor-core instructions")
+        n_int8 = len({fn for fn, kind in counts if "conv_int8_kernel" in fn and "IMMA" in kind})
+        if n_int8 != 2:
+            raise AssertionError(f"{n_int8} of the 2 int8 conv kernels (N2) hold IMMA")
     else:
         log("  sass: cuobjdump not found, tensor-core instructions not checked")
 
@@ -1372,6 +1384,297 @@ def _profile_scene(sc, run, scene_ms):
         f"{tag} {e.self_device_time_total / 1e3:.3f} x {e.count}" for tag, e in own)
         or "none traced"))
     log("profile: table written to chiprun_out/profile.txt")
+
+
+# int8 serving tier (kernel N2). Bars of the JAX package's tests/test_int8_inference.py:
+# ICN (bf16 + int8) and EdgeConnect's inpaint generator against their own float32 > 27 dB.
+INT8_PSNR_BAR = 27.0
+PEAK_INT8 = 1979e12  # the H100 SXM's published dense int8 tensor-core rate, operations/s
+INT8_ERASE_HW = (720, 1280)
+
+
+def _record_int8_shapes(fn):
+    """Runs ``fn`` with kernel N2's wrapper recording each distinct launch: returns
+    {(x shape, w shape, out dtype, geometry): count}."""
+    from future_urban_scene_generation_tpu_torch.ops import cuda_conv
+
+    seen, inner = {}, cuda_conv.conv_int8
+
+    def recording(xq, wq, sw, out_dtype, **geom):
+        key = (tuple(xq.shape), tuple(wq.shape), out_dtype, tuple(sorted(geom.items())))
+        seen[key] = seen.get(key, 0) + 1
+        return inner(xq, wq, sw, out_dtype, **geom)
+
+    cuda_conv.conv_int8 = recording
+    try:
+        fn()
+    finally:
+        cuda_conv.conv_int8 = inner
+    return seen
+
+
+def _int8_work(key):
+    """(operations, bytes) one N2 launch at ``key`` needs: 2 multiply-adds a useful tap
+    (a transposed conv's holes of input dilation are no work), each code and scale read
+    once, the output written once."""
+    from future_urban_scene_generation_tpu_torch.ops import cuda_conv
+
+    (n, h, w, c), (k, _, _, o), out_dtype, geom = key
+    g = dict(geom)
+    ho, wo = cuda_conv.int8_out_hw(h, w, k, g.get("stride", 1), g.get("pad_lo", 0),
+                                   g.get("pad_hi", 0), g.get("dilation", 1),
+                                   g.get("in_dilation", 1))
+    if g.get("in_dilation", 1) > 1:
+        ops = 2.0 * n * h * w * c * o * k * k
+    else:
+        ops = 2.0 * n * ho * wo * o * k * k * c
+    out_bytes = n * ho * wo * o * (4 if out_dtype == torch.float32 else 2)
+    return ops, n * h * w * c + k * k * c * o + 4 * o + out_bytes
+
+
+def _int8_codes(key, device, gen, fill=None):
+    (n, h, w, c), (k, _, _, o), out_dtype, geom = key
+    if fill is not None:
+        xq = torch.full((n, h, w, c), fill, dtype=torch.int8, device=device)
+        wq = torch.full((k, k, c, o), fill, dtype=torch.int8, device=device)
+    else:
+        xq = torch.randint(-127, 128, (n, h, w, c), generator=gen, device=device,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (k, k, c, o), generator=gen, device=device,
+                           dtype=torch.int8)
+    sw = torch.rand(o, generator=gen, device=device) * 1e-3 + 1e-5
+    return xq, wq, sw, out_dtype, dict(geom)
+
+
+def _int8_kernel_checks(shapes, device, report):
+    """N2 against its plain version (float64 on the codes, exact) on the card, bit for
+    bit, at every recorded shape (after a launch on other codes), then the transposed
+    and dilation-2 forms if the paths had none, then all codes +127. One line a case
+    goes to ``report``. Returns the largest |kernel - plain| over the cases."""
+    from future_urban_scene_generation_tpu_torch.ops import cuda_conv
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    cases = [(key, None) for key in shapes]
+    geoms = [dict(key[3]) for key in shapes]
+    if not any(g.get("in_dilation", 1) > 1 for g in geoms):
+        cases.append((((2, 33, 37, 64), (4, 4, 64, 48), torch.float32,
+                       (("in_dilation", 2), ("pad_hi", 2), ("pad_lo", 2))), None))
+    if not any(g.get("dilation", 1) > 1 for g in geoms):
+        cases.append((((2, 40, 36, 96), (3, 3, 96, 80), torch.bfloat16,
+                       (("dilation", 2), ("pad_hi", 2), ("pad_lo", 2))), None))
+    cases.append((((2, 24, 24, 256), (5, 5, 256, 64), torch.float32,
+                   (("pad_hi", 2), ("pad_lo", 2))), 127))
+    max_err = 0.0
+    for key, fill in cases:
+        xq, wq, sw, dt, geom = _int8_codes(key, device, gen, fill)
+        cuda_conv.conv_int8(-xq, wq.flip(0), sw, dt, **geom)  # other codes first
+        got = cuda_conv.conv_int8(xq, wq, sw, dt, **geom)
+        want = cuda_conv.conv_int8_plain(xq, wq, sw, dt, **geom)
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want)
+        err = float((got.double() - want.double()).abs().max())
+        max_err = max(max_err, err)
+        k, c = key[1][0], key[0][3]
+        report.append(f"int8[N2 {key[0]} * {key[1]} -> {dt}, {geom}"
+                      + (f", all codes +127: interior sums 127^2 * {k * k * c} = "
+                         f"{127 * 127 * k * k * c}" if fill else "")
+                      + f"]: equal to the plain version bit for bit: {ok}, max |diff| {err!r}")
+        if not ok:
+            raise AssertionError(f"kernel N2 disagrees with its plain version at {key}")
+    log(f"int8: N2 equal to its plain version bit for bit at all {len(cases)} cases (the "
+        "paths' shapes, transposed, dilated, all codes +127), each after a launch on other "
+        f"codes; max |kernel - plain| {max_err!r}")
+    return max_err
+
+
+def _int8_times(key, device, card, report):
+    """N2, its plain version, and two yardsticks the port never calls, at ``key``: the
+    int8 GEMM alone (``torch._int_mm`` on an im2col built beforehand) and cuDNN's
+    bf16 convolution of the same shapes."""
+    import torch.nn.functional as F
+
+    from future_urban_scene_generation_tpu_torch.ops import cuda_conv
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    xq, wq, sw, dt, geom = _int8_codes(key, device, gen)
+    ms = cuda_ms(lambda: cuda_conv.conv_int8(xq, wq, sw, dt, **geom), iters=10, warmup=2)
+    plain_ms = cuda_ms(lambda: cuda_conv.conv_int8_plain(xq, wq, sw, dt, **geom), iters=3)
+    ops, n_bytes = _int8_work(key)
+    bound, by = bound_ms(n_bytes, ops, PEAK_INT8)
+    c, (k, _, _, o) = key[0][3], key[1]
+    p, stride = geom.get("pad_lo", 0), geom.get("stride", 1)
+    # im2col in int8, rows (n, oy, ox), columns (ky, kx, c): the HWIO weight's order.
+    patches = F.pad(xq, (0, 0, p, p, p, p)).unfold(1, k, stride).unfold(2, k, stride)
+    a = patches.permute(0, 1, 2, 4, 5, 3).reshape(-1, k * k * c).contiguous()
+    b = wq.reshape(k * k * c, o)
+    b_col = b.t().contiguous().t()
+    try:
+        mm_ms = cuda_ms(lambda: torch._int_mm(a, b_col), iters=10, warmup=2)
+        mm_note = "B column-major"
+    except RuntimeError as e:  # a yardstick only: say which layout cuBLASLt took
+        mm_ms = cuda_ms(lambda: torch._int_mm(a, b.contiguous()), iters=10, warmup=2)
+        mm_note = f"B row-major ({str(e).splitlines()[0][:60]})"
+    xb = xq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    wb = wq.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    bf16_ms = cuda_ms(lambda: F.conv2d(xb, wb, padding=p, stride=stride), iters=10, warmup=2)
+    (log if key[0][0] == 24 else report.append)(  # the ICN's convs on the log
+        f"int8 time at {key[0]} * {key[1]} -> {dt} {geom}: N2 {ms:.4f} ms; plain version "
+        f"(float64 conv on the codes) {plain_ms:.3f} ms; bound {bound:.4f} ms by {by} "
+        f"({ops:.3e} int8 operations at 1,979 TOP/s); yardsticks: torch._int_mm on a prebuilt "
+        f"im2col ({a.shape[0]} x {a.shape[1]} @ {o}, {mm_note}) {mm_ms:.4f} ms, cuDNN bf16 "
+        f"F.conv2d of the same conv {bf16_ms:.4f} ms ({card})")
+    return ms, plain_ms, bound, by, mm_ms, bf16_ms
+
+
+def phase_int8(device, card):
+    """The int8 serving tier: N2 against its plain version at every conv shape of the
+    quantized bench scene and erase, codes on the card against the CPU's, times, the
+    JAX package's quality bars at full width, then ``run_scene`` on the bench scene
+    with ``quantized_convs``. Returns (the kernels line's record, launches)."""
+    from future_urban_scene_generation_tpu_torch.models import edgeconnect, layers
+    from future_urban_scene_generation_tpu_torch.ops import cuda_conv, cuda_raster
+    from future_urban_scene_generation_tpu_torch.pipeline import inpaint, runner, stages, synthetic
+    from future_urban_scene_generation_tpu_torch.spec import SERVING_SPEC
+
+    spec_q = SERVING_SPEC.replace(quantized_convs=True)
+    sc = synthetic.make_bench_scene(V=4, hw=(1080, 1920), t_steps=6, device=device, spec=spec_q)
+
+    def run(spec):
+        return runner.run_scene(sc.models, sc.cad_bank, sc.frame, sc.background, sc.bboxes,
+                                sc.meters, sc.intrinsic, spec=spec)
+
+    # The shapes each path launches N2 at: the scene, and the erase of 4 vehicles on
+    # 6 frames (EdgeConnect at full width, seeded).
+    scene_shapes = _record_int8_shapes(lambda: run(spec_q))
+    edge, inp = edgeconnect.build_generators(torch.Generator().manual_seed(21), device=device)
+    h, w = INT8_ERASE_HW
+    gen = torch.Generator().manual_seed(22)
+    frames = torch.rand((6, h, w, 3), generator=gen).to(device)
+    boxes = np.float32([[100 + 260 * v, 300, 300 + 260 * v, 460] for v in range(4)])
+    yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    masks = torch.stack([(xx >= b[0] + 10) & (xx < b[2] - 10) & (yy >= b[1] + 10)
+                         & (yy < b[3] - 10) for b in boxes]).to(device)
+    masks = masks[None].expand(6, -1, -1, -1)
+    def erase():
+        with layers.quantized_convs():  # as the service erases under its spec
+            inpaint.erase_vehicles(edge, inp, frames, boxes, masks)
+
+    erase_shapes = _record_int8_shapes(erase)
+    report = []
+    for label, shapes in (("scene", scene_shapes), ("erase", erase_shapes)):
+        log(f"int8: the quantized {label} launches N2 at {len(shapes)} shapes, "
+            f"{sum(shapes.values())} launches (list in chiprun_out/int8.txt)")
+        report += [f"{label}: {k[0]} * {k[1][0]}x{k[1][1]} -> {k[1][3]} {dict(k[3])} x{v}"
+                   for k, v in shapes.items()]
+    max_err = _int8_kernel_checks({**scene_shapes, **erase_shapes}, device, report)
+
+    # Codes on the card and on the CPU for one conv (torch's float32 division and
+    # round-half-even on both).
+    gen = torch.Generator().manual_seed(23)
+    x = torch.randn((4, 64, 64, 256), generator=gen) * 3
+    wt = torch.randn((3, 3, 256, 256), generator=gen) * 0.05
+    card_codes = layers.quantize_int8(x.to(device), wt.to(device))
+    cpu_codes = layers.quantize_int8(x, wt)
+    same = [torch.equal(a.cpu(), b) for a, b in zip(card_codes, cpu_codes)]
+    log(f"int8: codes on the card equal to the CPU's (x codes, w codes, sw): {same}")
+    if not all(same):
+        raise AssertionError("int8: the card's codes differ from the CPU's")
+
+    # Times at each distinct shape of the scene; the kernels line takes the trunk conv
+    # (the most launches).
+    timed = {key: _int8_times(key, device, card, report) for key in scene_shapes}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "int8.txt"), "w") as fh:
+        fh.write("\n".join(report) + "\n")
+    trunk = max(scene_shapes, key=lambda k: (scene_shapes[k], _int8_work(k)[0]))
+    per_scene = sum(timed[k][0] * scene_shapes[k] for k in scene_shapes)
+    bound_scene = sum(timed[k][2] * scene_shapes[k] for k in scene_shapes)
+    log(f"int8: N2 in one quantized scene: {per_scene:.3f} ms of kernel time over "
+        f"{sum(scene_shapes.values())} launches against a {bound_scene:.3f} ms bound ({card})")
+
+    # The JAX package's quality bars at full width (tests/test_int8_inference.py).
+    rng = np.random.RandomState(11)
+    f = lambda a: torch.as_tensor(np.float32(a), device=device)  # noqa: E731
+    sk, ce, pl = f(rng.rand(24, 256, 256, 3)), f(rng.rand(4, 256, 256, 3) * 2 - 1), \
+        f(rng.rand(24, 5, 256, 256, 3) * 2 - 1)
+    f32 = SERVING_SPEC.replace(generator_dtype="float32")
+    icn_f = stages.icn_synthesize_batch(sc.models, f32, sk, ce, pl, s_repeat=6)
+    icn_q = stages.icn_synthesize_batch(sc.models, spec_q, sk, ce, pl, s_repeat=6)
+    icn_bf = stages.icn_synthesize_batch(sc.models, SERVING_SPEC, sk, ce, pl, s_repeat=6)
+    p_icn = _psnr(icn_f, icn_q)
+    ex = f(rng.rand(1, 256, 256, 4))
+    with torch.no_grad():
+        ec_f = inp(ex)
+        with layers.quantized_convs():
+            ec_q = inp(ex)
+    p_ec = _psnr(ec_f, ec_q)
+    masks4 = torch.as_tensor(rng.rand(4, 256, 256) > 0.5, device=device)
+    win = stages.cr.Window(*(torch.full((4,), float(v), device=device)
+                             for v in (100.0, 50.0, 256.0, 256.0)))
+    vun = {}
+    for spec in (f32, f32.replace(quantized_convs=True)):
+        mu = stages.vunet_encode_appearance_batch(sc.models, spec, sc.frame, sk[::6], masks4, win)
+        vun[spec.quantized_convs] = mu + [stages.vunet_decode_batch(
+            sc.models, spec, sk, [m.repeat_interleave(6, 0) for m in mu])]
+    vun_equal = all(torch.equal(a, b) for a, b in zip(vun[False], vun[True]))
+    icn_ms = {name: cuda_ms(lambda s=s: stages.icn_synthesize_batch(sc.models, s, sk, ce, pl,
+                                                                     s_repeat=6), iters=5)
+              for name, s in (("bf16", SERVING_SPEC), ("bf16 + int8", spec_q))}
+    log(f"int8: quality at full width: ICN (N=24, 256^2) bf16 + int8 vs float32 "
+        f"{p_icn:.2f} dB (bf16 alone {_psnr(icn_f, icn_bf):.2f}), EdgeConnect inpaint generator "
+        f"(256^2) int8 vs float32 {p_ec:.2f} dB (bars > {INT8_PSNR_BAR}); VUNet float32 with "
+        f"the knob on bit-equal: {vun_equal}. ICN forward ms: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in icn_ms.items()) + f" ({card})")
+    if not (p_icn > INT8_PSNR_BAR and p_ec > INT8_PSNR_BAR and vun_equal):
+        raise AssertionError("int8: a quality bar of the JAX package's tests is not met")
+
+    # The main path on the tier: run_scene on the bench scene with quantized_convs.
+    t0 = time.perf_counter()
+    run(spec_q)
+    torch.cuda.synchronize()
+    log(f"int8: first quantized scene after the checks {time.perf_counter() - t0:.2f} s")
+    cuda_conv.INT8_LAUNCHES = cuda_conv.LAUNCHES = cuda_raster.LAUNCHES = 0
+    times, res = [], None
+    for _ in range(MAIN_SCENES):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = run(spec_q)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    launches = {"conv_int8": cuda_conv.INT8_LAUNCHES, "raster": cuda_raster.LAUNCHES,
+                "icn_stem_conv": cuda_conv.LAUNCHES}
+    for name, frames_out in (("icn", res.frames_icn), ("vunet", res.frames_vunet)):
+        if tuple(frames_out.shape) != (6, 1080, 1920, 3) or not bool(
+                torch.isfinite(frames_out).all()):
+            raise AssertionError(f"int8: quantized scene output {name} malformed")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"int8: a kernel of the quantized scene never launched: {launches}")
+    float_times = []
+    for _ in range(MAIN_SCENES):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(SERVING_SPEC)
+        end.record()
+        torch.cuda.synchronize()
+        float_times.append(start.elapsed_time(end))
+    med = statistics.median(times)
+    log(f"int8: quantized bench scene times {[round(t, 2) for t in times]} ms, median "
+        f"{med:.2f} ms = {12 * 1000.0 / med:.2f} composited 1080p frames/s (the same scene in "
+        f"bf16 alone, same call: median {statistics.median(float_times):.2f} ms); launches a "
+        f"scene: " + ", ".join(f"{k} {v / MAIN_SCENES:g}" for k, v in launches.items())
+        + f"; frames finite ({card})")
+    ms, plain_ms, bound, by, mm_ms, bf16_ms = timed[trunk]
+    record = dict(name="conv_int8", route="cuda",
+                  source="future_urban_scene_generation_tpu_torch/csrc/conv_int8.cu",
+                  replaces="none: not a TPU kernel port (the JAX _int8_conv / "
+                           "_int8_conv_transpose, future_urban_scene_generation_tpu/models/"
+                           "layers.py:178, :218, run an int8 conv in XLA)",
+                  max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                  library_ms=None)
+    log(f"int8: kernels line row at the trunk conv {trunk[0]} * {trunk[1]}: no PyTorch call "
+        f"computes an int8 convolution on CUDA (library_ms null; yardsticks above)")
+    return record, launches
 
 
 def phase_demo(device, card):
@@ -2631,6 +2934,10 @@ def main():
         phase_gpu_vs_cpu(device)
     if "main" in phases:
         launches = phase_main(device, args.profile, smi)
+    if "int8" in phases:
+        record, int8_launches = phase_int8(device, smi)
+        kernels.append(record)
+        launches["conv_int8"] = int8_launches["conv_int8"]
     if "train" in phases:
         launches.update(phase_train(device, smi))
     if "demo" in phases:

@@ -89,6 +89,9 @@ class RuntimeConfig:
     # Directory of ahead-of-time scene-program artifacts. Not ported: the service
     # refuses a configuration that sets it.
     aot_dir: Optional[Path] = None
+    # The int8 serving tier (ModelSpec.quantized_convs), set by a library caller; the
+    # JAX package's counterpart is configure_models(quantized_convs=True). No CLI flag.
+    quantized_convs: bool = False
 
 
 @dataclass
@@ -135,6 +138,7 @@ class PipelineConfig:
             num_blocks=self.blocks,
             vunet_256=self.reso == 256,
             reference_channel_order=self.reference_channel_order,
+            quantized_convs=self.runtime.quantized_convs,
         )
 
     def load_edgeconnect_yaml(self):

@@ -67,6 +67,21 @@ int fusg_nms(const float* boxes_sorted, const float* scores_sorted, const long l
              long long* out, cudaStream_t stream);
 int fusg_nms_smem_bytes(int n);
 
+// N2 (conv_int8.cu): int8 codes convolved with exact int32 accumulation, then
+// out = float32(acc) * sw[o] as float32 (out_dtype 0) or bfloat16 (1), NHWC.
+//   x (n, h, w, c) s8 with c % 16 == 0; wpk (cout, kp) s8: HWIO codes ordered
+//   (ky, kx, c), zero codes past kh * kw * c up to kp (a multiple of 32); sw (cout,) f32;
+//   out (n, ho, wo, cout). The conv: stride, low padding (pad_y, pad_x), dilation; the
+//   transposed conv: the input dilated by in_dilation, an already flipped kernel, low
+//   padding; the high side follows from (ho, wo). Not a TPU kernel port (XLA int8 conv).
+int fusg_conv_int8(const void* x, const void* wpk, const float* sw, void* out, int out_dtype,
+                   int n, int h, int w, int c, int kh, int kw, int cout, int ho, int wo,
+                   int stride, int pad_y, int pad_x, int dil, int kp, cudaStream_t stream);
+int fusg_conv_transpose_int8(const void* x, const void* wpk, const float* sw, void* out,
+                             int out_dtype, int n, int h, int w, int c, int kh, int kw,
+                             int cout, int ho, int wo, int in_dilation, int pad_y, int pad_x,
+                             int kp, cudaStream_t stream);
+
 #ifdef __cplusplus
 }
 #endif

@@ -3,7 +3,8 @@ Gauss-Newton polish, and the closed-form 4-point solve.
 
 Counterpart of the JAX package's geometry/homography.py ``find_homography`` (:234,
 ``refine=False`` — the plane-warp path) and ``find_homography_quad`` (:188). Every
-function takes a leading batch dim. Solves use the ``_ex`` linear-algebra variants,
+function but ``_sampson_refine`` (:110, cv2's post-DLT polish, one homography) takes
+a leading batch dim. Solves use the ``_ex`` linear-algebra variants,
 so no error check reads a value back to the host.
 """
 from __future__ import annotations
@@ -99,17 +100,23 @@ def _finish(h_mat, valid):
     return h_out, valid
 
 
-def find_homography(src: torch.Tensor, dst: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """H mapping src -> dst from (B, n, 2) correspondences, n >= 4 (the JAX
-    ``find_homography(..., refine=False)``). Returns (H (B, 3, 3) with H[2,2] = 1,
-    valid (B,))."""
+def find_homography(src: torch.Tensor, dst: torch.Tensor, refine: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """H mapping src -> dst from (B, n, 2) correspondences, n >= 4. Returns (H (B, 3, 3)
+    with H[2,2] = 1, valid (B,)). ``refine=False`` (the plane-warp path) polishes the
+    DLT null vector in closed form; ``refine=True`` (the JAX default, the
+    reference-parity ``render/planes``) runs :func:`_sampson_refine` on each
+    denormalized H instead."""
     src = src.to(torch.float32)
     dst = dst.to(torch.float32)
     src_n, t_src = _normalize_points(src)
     dst_n, t_dst = _normalize_points(dst)
     h_n, eigvals = _dlt(src_n, dst_n)
-    h_n = _gn_polish_normed(h_n.reshape(-1, 9), src_n, dst_n).reshape(-1, 3, 3)
+    if not refine:
+        h_n = _gn_polish_normed(h_n.reshape(-1, 9), src_n, dst_n).reshape(-1, 3, 3)
     h_mat = torch.linalg.solve_ex(t_dst, h_n @ t_src).result
+    if refine:
+        h_mat = torch.stack([_sampson_refine(h, s, d) for h, s, d in zip(h_mat, src, dst)])
     rank_ok = eigvals[:, 1] > 1e-6 * torch.clamp(eigvals[:, -1], min=1e-12)
     return _finish(h_mat, rank_ok)
 
@@ -183,3 +190,28 @@ def find_homography_quad(src: torch.Tensor, dst: torch.Tensor
     h_mat = inv_t_dst @ (h_n @ t_src)
     valid = _quad_nondegenerate(src_n) & _quad_nondegenerate(dst_n)
     return _finish(h_mat, valid)
+
+
+def _sampson_refine(h_mat: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                    iters: int = 10) -> torch.Tensor:
+    """Gauss-Newton refinement of the transfer error of one (3, 3) homography on (n, 2)
+    correspondences (JAX :110): ``iters`` steps of (J^T J + 1e-9 I) d = -J^T r, the
+    Jacobian by ``torch.func.jacfwd``; a non-finite step is dropped."""
+    from future_urban_scene_generation_tpu_torch.geometry.pnp import _JACFWD_LOCK
+
+    src_h = torch.cat([src, torch.ones((src.shape[0], 1), dtype=src.dtype,
+                                       device=src.device)], dim=1)
+
+    def residual(hv):
+        proj = src_h @ hv.reshape(3, 3).T
+        return (proj[:, :2] / proj[:, 2:3] - dst).reshape(-1)
+
+    eye = torch.eye(9, dtype=h_mat.dtype, device=h_mat.device)
+    hv = h_mat.reshape(9)
+    for _ in range(iters):
+        r = residual(hv)
+        with _JACFWD_LOCK:  # forward-AD levels are process-wide (geometry/pnp.py)
+            j = torch.func.jacfwd(residual)(hv)
+        upd = -torch.linalg.solve(j.T @ j + 1e-9 * eye, j.T @ r)
+        hv = hv + torch.where(torch.isfinite(upd).all(), upd, torch.zeros_like(upd))
+    return hv.reshape(3, 3)

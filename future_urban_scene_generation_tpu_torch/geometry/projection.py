@@ -19,3 +19,11 @@ def project_normalized(points_3d, rvec, tvec, focals, centers):
     r_mat = rodrigues_to_matrix(rvec)
     cam = points_3d @ r_mat.transpose(-1, -2) + tvec[..., None, :]
     return focals * cam[..., :2] / cam[..., 2:3] + centers
+
+
+def project_points_rodrigues(points_3d, rvec, tvec, intrinsic):
+    """cv2.projectPoints without distortion (JAX :21): (N, 3) -> (N, 2)."""
+    r_mat = rodrigues_to_matrix(rvec.reshape(3))
+    cam = points_3d @ r_mat.T + tvec.reshape(3)
+    proj = cam @ intrinsic.T
+    return proj[..., :2] / proj[..., 2:3]

@@ -28,6 +28,13 @@ def x_rot(alpha):
     return _rot(c, s, (("1", "0", "0"), ("0", "c", "-s"), ("0", "s", "c")))
 
 
+def y_rot(alpha, clockwise: bool = False):
+    """Rotation about Y, counter-clockwise unless ``clockwise`` (JAX :30), (..., 3, 3)."""
+    c, s = torch.cos(alpha), torch.sin(alpha)
+    s = -s if clockwise else s
+    return _rot(c, s, (("c", "0", "s"), ("0", "1", "0"), ("-s", "0", "c")))
+
+
 def z_rot(alpha):
     """Counter-clockwise rotation about Z, (..., 3, 3)."""
     c, s = torch.cos(alpha), torch.sin(alpha)
@@ -113,3 +120,34 @@ def extrinsic_from_rodrigues(rvec, tvec):
     bottom = torch.zeros(top.shape[:-2] + (1, 4), dtype=top.dtype, device=top.device)
     bottom[..., 0, 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
+
+
+def delta_t_vec(axis: str, t_value):
+    """Translation vector along a named axis (JAX :166; utils/geometry.py:140-144)."""
+    out = torch.zeros(3)
+    out[{"x": 0, "y": 1, "z": 2}[axis]] = t_value
+    return out
+
+
+def intrinsic_matrix(focal, cx, cy):
+    """Square-pixel zero-skew K (JAX :172; utils/geometry.py:116-127), float32."""
+    def f32(v):
+        return torch.as_tensor(v, dtype=torch.float32)
+
+    f = f32(focal)
+    zero, one = torch.zeros_like(f), torch.ones_like(f)
+    return torch.stack([torch.stack([f, zero, f32(cx)]), torch.stack([zero, f, f32(cy)]),
+                        torch.stack([zero, zero, one])])
+
+
+def rotmat_to_az_el_radius(camera_coords):
+    """Camera position (3,) -> (azimuth deg, elevation deg, radius), the angles wrapped
+    to [0, 360) (JAX :186; utils/geometry.py:147-161)."""
+    tx, ty, tz = camera_coords[0], camera_coords[1], camera_coords[2]
+    azimuth = torch.rad2deg(torch.atan2(tx, tz))
+    proj = torch.stack([tx, torch.zeros_like(ty), tz])
+    cam_n = camera_coords / torch.linalg.vector_norm(camera_coords)
+    proj_n = proj / torch.clamp(torch.linalg.vector_norm(proj), min=1e-12)
+    elevation = torch.rad2deg(torch.arccos(torch.clamp(torch.dot(cam_n, proj_n), -1.0, 1.0)))
+    return (torch.remainder(azimuth, 360.0), torch.remainder(elevation, 360.0),
+            torch.linalg.vector_norm(camera_coords))

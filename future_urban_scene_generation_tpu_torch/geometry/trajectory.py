@@ -49,3 +49,9 @@ def rollout_from_meters(meter_coords: torch.Tensor) -> Rollout:
     delta_t = torch.stack([zero, -distance, zero], dim=-1)
     translation = torch.einsum("vsi,vsij->vsj", delta_t, rots)
     return Rollout(theta, translation, distance, theta_start)
+
+
+def transform_points(points: torch.Tensor, theta: torch.Tensor, translation: torch.Tensor):
+    """The reference's per-step rigid motion p @ z_rot(theta) + tr (JAX :70;
+    trajectory_inference.py:362-363); broadcasts over a leading step axis."""
+    return points @ z_rot(theta) + translation

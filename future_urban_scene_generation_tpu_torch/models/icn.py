@@ -19,8 +19,11 @@ from future_urban_scene_generation_tpu_torch.models.layers import (
     WarpLearnLayerNorm,
     activation,
     avg_pool_torch,
+    conv_nhwc_int8,
     instance_norm,
     reflect_pad,
+    suppress_quantization,
+    upconv5_int8_eligible,
     upsample2x_nearest,
 )
 from future_urban_scene_generation_tpu_torch.ops.resize import resize_nearest
@@ -42,12 +45,31 @@ class Conv2dBlock(nn.Module):
             raise ValueError(f"unsupported norm {norm}")
 
     def forward(self, x):
-        x = self.conv(reflect_pad(x, self.padding))
+        return self._post(self.conv(reflect_pad(x, self.padding)))
+
+    def _post(self, x):
         if self.norm_type == "inst":
             x = instance_norm(x)
         elif self.norm_type == "ln":
             x = self.norm(x)
         return self.act(x)
+
+
+class UpConv2dBlock(Conv2dBlock):
+    """An up stage's reflect-pad(2) -> 5x5 conv -> layer norm -> ReLU on the
+    upsampled field, routed as the JAX ``upconv2x_nearest_reflect`` (layers.py:1045-1063):
+    on the int8 tier by the gate of its phase-packed kernel
+    (``layers.upconv5_int8_eligible``), else the float conv with the tier off."""
+
+    def __init__(self, cin, cout):
+        super().__init__(cin, cout, 5, 1, 2, "ln", "relu")
+
+    def forward(self, x):
+        u = reflect_pad(x, self.padding)
+        if upconv5_int8_eligible(x, self.conv.weight.shape[0]):
+            return self._post(conv_nhwc_int8(u, self.conv.weight, self.conv.bias))
+        with suppress_quantization():
+            return self._post(self.conv(u))
 
 
 class ResBlock(nn.Module):
@@ -102,7 +124,7 @@ class Decoder(nn.Module):
         layers = [ResBlocks(n_res, dim)]
         for _ in range(n_upsample):
             layers.append(Upsample2x())
-            layers.append(Conv2dBlock(dim, dim // 2, 5, 1, 2, "ln", "relu"))
+            layers.append(UpConv2dBlock(dim, dim // 2))
             dim //= 2
         layers.append(Conv2dBlock(dim, output_dim, 7, 1, 3, "none", "tanh"))
         self.model = nn.ModuleList(layers)

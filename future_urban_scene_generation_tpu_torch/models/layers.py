@@ -10,6 +10,47 @@ statistics, ``avg_pool_torch`` (:943), the ICN's
 2x upsample the ICN decoder composes with a reflect-padded 5x5 conv, as the plain
 ``upconv2x_nearest_reflect_reference`` (:1009) does.
 
+The int8 serving tier (``ModelSpec.quantized_convs``, JAX layers.py:140-303): inside
+an enabled :func:`quantized_convs` scope (:func:`suppress_quantization` is the disabled
+one), a conv that is :func:`int8_eligible` (float32 or bfloat16, C_in >= 32, C_out >= 32) and
+not taken by K3's gate first quantizes its input and weight (:func:`quantize_int8`, op
+for op the JAX ``_int8_conv``) and runs on kernel N2; the transposed conv likewise.
+Where each conv of the port goes with the tier on, beside its JAX counterpart:
+
+* ``vgg.VGG19Classifier`` / ``VGG19Features`` (JAX vgg.py:67 ``TorchConv``): int8 but
+  the first conv (C_in 3).
+* ``hourglass`` (JAX hourglass.py:39-125): int8 for the bottlenecks' convs, the
+  downsample and ``fc`` / ``fc_``; float for the 7x7 stem (C_in 3), ``score`` (C_out
+  12) and ``score_`` (C_in 12).
+* ``icn.GResnet`` (JAX icn.py:45, layers.py:1063): the stem stays kernel K2 in the
+  scene (K3 in the trainer's full forward; the JAX stem, C_in 21, stays float); the
+  down convs and the 12 residual convs int8; each up stage int8 on its 5x5 conv at
+  every pixel of the upsampled, reflect-padded input, where the JAX package quantizes
+  the phase-packed 3x3 rewrite (4 O output channels with their own scales, borders in
+  float) that the port does not carry: there the two tiers differ in rounding, not
+  in function (held at a PSNR). An up stage takes the tier by the JAX gate on that
+  packed kernel (:func:`upconv5_int8_eligible`: C_in >= 32, 4 C_out >= 32, source at
+  least 4x4), else stays float; the 64 -> 3 head float. ``DNLayersMulti`` (JAX
+  icn.py:235-247): int8 but the first (C_in 3) and the last (C_out 1) conv.
+* ``vunet`` (``WNConv2d``; JAX ``WNConv`` :857): int8-eligible, but the stages run both
+  VUNet forwards under :func:`suppress_quantization` (JAX stages.py:653-657,
+  674-678): float.
+* ``edgeconnect`` served generators (``Conv2d`` / ``ConvTranspose2d``; JAX
+  edgeconnect.py:53, 80, 143): int8 for ``encoder.4``, ``encoder.7``, the residual
+  blocks and the transposed ``decoder.0`` / ``decoder.3``; float for ``encoder.1``
+  (C_in 3 or 4) and ``decoder.7`` (C_out 1 or 3). ``SNConv2d`` / ``SNConvTranspose2d``
+  (the trained networks and ``ECDiscriminator``; JAX ``SNConv`` :756,
+  ``SNConvTranspose`` :814, which call the float conv): float, under
+  :func:`suppress_quantization`.
+* ``maskrcnn`` (JAX maskrcnn.py:57-211): int8 for the ResNet-50 bottlenecks and
+  downsamples, the FPN's inner and layer blocks, the RPN's 3x3 conv, the mask head's
+  convs, its transposed ``conv5_mask`` and ``mask_fcn_logits``; float for the 7x7 stem
+  (C_in 3) and the RPN's ``cls_logits`` / ``bbox_pred`` (C_out 3, 12).
+* The JAX width-folded convs (``_conv_on_folded``) are a TPU layout the port does not
+  carry. K3's gate comes first, as the JAX Pallas gate: a conv with C_in = 32 and
+  k >= 4 takes K3 here where the JAX package on the CPU quantizes it; no stock
+  network has one.
+
 Parameters keep torch's layouts and the reference's state-dict names; activations
 stay NHWC. Around ``F.conv2d`` an NHWC tensor is viewed as NCHW by a permute, which
 is PyTorch's channels_last memory format, so no copy is made. The bfloat16 rule of
@@ -19,6 +60,8 @@ dtype (bias added after the conv in that dtype), normalization statistics float3
 from __future__ import annotations
 
 import math
+import threading
+from contextlib import contextmanager
 
 import torch
 import torch.nn as nn
@@ -62,23 +105,142 @@ class _SmallCinConv(torch.autograd.Function):
         return (grad_x.permute(0, 2, 3, 1) if grad_x is not None else None), grad_w, None
 
 
+# The int8 tier's scope state. Thread-local, as the JAX package's _TRACE_SCOPES
+# (layers.py:140-145): two MultiStreamRunner workers serving specs that differ must
+# not see each other's tier or suppression.
+_SCOPES = threading.local()
+
+
+@contextmanager
+def quantized_convs(enabled: bool = True):
+    """Run the convs of this thread's forwards inside the block on the int8 tier when
+    ``enabled`` (``ModelSpec.quantized_convs``): the stages open this scope around
+    each forward they run with their spec. Nested scopes restore the outer one."""
+    outer = getattr(_SCOPES, "quantize", False)
+    _SCOPES.quantize = bool(enabled)
+    try:
+        yield
+    finally:
+        _SCOPES.quantize = outer
+
+
+def suppress_quantization():
+    """Keep this thread's convs on the float path inside the block whatever the tier
+    (JAX layers.py:149-166): in the port's scopes that is ``quantized_convs(False)``.
+    VUNet's weight-normed stack has no renormalization after its convs, so per-conv
+    int8 rounding compounds (the JAX package measured 20.1 dB against float32); the
+    stages wrap both VUNet forwards in this scope. The spectral-norm layers take it
+    too: the JAX ``SNConv`` / ``SNConvTranspose`` call the float conv directly."""
+    return quantized_convs(False)
+
+
+def quantization_active() -> bool:
+    """Whether this thread is inside an enabled int8 scope."""
+    return getattr(_SCOPES, "quantize", False)
+
+
+def int8_eligible(x, cout: int) -> bool:
+    """The JAX ``_int8_eligible`` (layers.py:245-253): the tier is on and not
+    suppressed, a float32 or bfloat16 input, C_in >= 32 and C_out >= 32."""
+    return (quantization_active() and x.dtype in (torch.float32, torch.bfloat16)
+            and x.shape[-1] >= 32 and cout >= 32)
+
+
+def upconv5_int8_eligible(u, cout: int) -> bool:
+    """The int8 gate of an ICN up stage's 5x5 conv, ``u`` the nearest-2x upsampled
+    field (2h, 2w): the JAX package quantizes the stage's phase-packed (3, 3, C_in,
+    4 C_out) kernel at source resolution (layers.py:1048-1063), so its
+    ``_int8_eligible`` reads C_in >= 32 and 4 C_out >= 32, K3's gate is never asked,
+    and a source under 4x4 takes the float reference composition."""
+    return (quantization_active() and u.dtype in (torch.float32, torch.bfloat16)
+            and u.shape[-1] >= 32 and 4 * cout >= 32 and u.shape[1] >= 8
+            and u.shape[2] >= 8)
+
+
+def quantize_int8(x, w_hwio):
+    """The JAX ``_int8_conv``'s quantization (layers.py:195-205), op for op: a
+    per-input-channel activation scale sx = max(max|x| over N, H, W, 1e-12) / 127,
+    folded into the weight (w_eff = w * sx), a per-output-channel weight scale sw from
+    w_eff the same way, and codes round(x / sx), round(w_eff / sw) (half to even,
+    divisions, not reciprocals) clamped to +-127. ``w_hwio`` is already in x's dtype;
+    both go to float32 first. Returns (x codes, w codes, sw)."""
+    sx = torch.clamp(x.abs().amax(dim=(0, 1, 2)).to(torch.float32), min=1e-12) * (1.0 / 127.0)
+    w_eff = w_hwio.to(torch.float32) * sx[None, None, :, None]
+    sw = torch.clamp(w_eff.abs().amax(dim=(0, 1, 2)), min=1e-12) * (1.0 / 127.0)
+    xq = torch.clamp(torch.round(x.to(torch.float32) / sx), -127, 127).to(torch.int8)
+    wq = torch.clamp(torch.round(w_eff / sw), -127, 127).to(torch.int8)
+    return xq, wq, sw
+
+
+class _Int8Conv(torch.autograd.Function):
+    """A conv on the int8 tier: forward by kernel N2 (``cuda_conv.conv_int8``) on the
+    codes of :func:`quantize_int8`, output ``float32(acc) * sw`` in x's dtype;
+    backward the float conv's gradients, as the JAX ``_dispatch_conv`` custom VJP
+    (layers.py:603-607). ``transposed``: ``weight`` is a ConvTranspose2d's (in, out,
+    kh, kw), run as the JAX ``_int8_conv_transpose`` (:218-242) does: the kernel
+    flipped, the input dilated by the stride, padding k-1-p on both sides."""
+
+    @staticmethod
+    def forward(ctx, x, weight, stride: int, padding: int, dilation: int, transposed: bool):
+        ctx.save_for_backward(x, weight)
+        ctx.geom = (stride, padding, dilation, transposed)
+        k = weight.shape[-1]
+        if transposed:
+            xq, wq, sw = quantize_int8(x, weight.permute(2, 3, 0, 1).flip(0, 1))
+            lo = k - 1 - padding
+            return cuda_conv.conv_int8(xq, wq, sw, x.dtype, pad_lo=lo, pad_hi=lo,
+                                       in_dilation=stride)
+        xq, wq, sw = quantize_int8(x, weight.permute(2, 3, 1, 0))
+        return cuda_conv.conv_int8(xq, wq, sw, x.dtype, stride=stride, pad_lo=padding,
+                                   pad_hi=padding, dilation=dilation)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        stride, p, dil, transposed = ctx.geom
+        grad_x, grad_w, _ = torch.ops.aten.convolution_backward(
+            grad.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), weight, None, [stride] * 2,
+            [p, p], [dil, dil], transposed, [0, 0], 1,
+            [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False],
+        )
+        grad_x = grad_x.permute(0, 2, 3, 1) if grad_x is not None else None
+        return grad_x, grad_w, None, None, None, None
+
+
 def conv_nhwc(x, weight, bias, stride: int = 1, padding: int = 0, dilation: int = 1):
     """torch Conv2d (zero padding, cross-correlation) on NHWC ``x`` with an OIHW
     ``weight``; the weight is cast to x's dtype, the bias (None: none) added
-    afterwards. A conv that passes :func:`small_cin_gate` runs through kernel K3."""
+    afterwards. The dispatch of the JAX ``_dispatch_conv_impl`` (layers.py:257-303):
+    a conv that passes :func:`small_cin_gate` runs through kernel K3, else one that
+    is :func:`int8_eligible` through the int8 tier (kernel N2), else ``F.conv2d``."""
     weight = weight.to(x.dtype)
     if dilation == 1 and small_cin_gate(x.shape[-1], weight.shape[-1], stride, x.dtype):
         y = _SmallCinConv.apply(x, weight, padding)
+    elif int8_eligible(x, weight.shape[0]):
+        return conv_nhwc_int8(x, weight, bias, stride, padding, dilation)
     else:
         y = F.conv2d(x.permute(0, 3, 1, 2), weight, None, stride, padding,
                      dilation).permute(0, 2, 3, 1)
     return y if bias is None else y + bias.to(y.dtype)
 
 
+def conv_nhwc_int8(x, weight, bias, stride: int = 1, padding: int = 0, dilation: int = 1):
+    """:func:`conv_nhwc` on the int8 tier whatever the gates: the route of a conv the
+    caller has found eligible."""
+    y = _Int8Conv.apply(x, weight.to(x.dtype), stride, padding, dilation, False)
+    return y if bias is None else y + bias.to(y.dtype)
+
+
 def conv_transpose_nhwc(x, weight, bias, stride: int = 2, padding: int = 1):
-    """torch ConvTranspose2d on NHWC ``x`` with an (in, out, kh, kw) ``weight``."""
-    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), weight.to(x.dtype), None, stride,
-                           padding).permute(0, 2, 3, 1)
+    """torch ConvTranspose2d on NHWC ``x`` with an (in, out, kh, kw) ``weight``; on the
+    int8 tier where :func:`int8_eligible`, as the JAX ``TorchConvTranspose``
+    (layers.py:697-698)."""
+    weight = weight.to(x.dtype)
+    if int8_eligible(x, weight.shape[1]):
+        y = _Int8Conv.apply(x, weight, stride, padding, 1, True)
+    else:
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), weight, None, stride,
+                               padding).permute(0, 2, 3, 1)
     return y if bias is None else y + bias.to(y.dtype)
 
 
@@ -219,8 +381,9 @@ class SNConv2d(_SpectralNorm):
         self._init_sn((cout, cin, k, k), bias)
 
     def forward(self, x):
-        return conv_nhwc(x, self.effective_weight(), self.bias, self.stride, self.padding,
-                         self.dilation)
+        with suppress_quantization():  # the JAX SNConv calls the float conv (:756)
+            return conv_nhwc(x, self.effective_weight(), self.bias, self.stride,
+                             self.padding, self.dilation)
 
 
 class SNConvTranspose2d(_SpectralNorm):
@@ -235,8 +398,9 @@ class SNConvTranspose2d(_SpectralNorm):
         self._init_sn((cin, cout, k, k), True)
 
     def forward(self, x):
-        return conv_transpose_nhwc(x, self.effective_weight(), self.bias, self.stride,
-                                   self.padding)
+        with suppress_quantization():  # the JAX SNConvTranspose calls the float conv (:814)
+            return conv_transpose_nhwc(x, self.effective_weight(), self.bias, self.stride,
+                                       self.padding)
 
 
 def advance_spectral_norm_(module: nn.Module) -> None:

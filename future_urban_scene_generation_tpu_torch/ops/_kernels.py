@@ -3,12 +3,12 @@
 Three sources hold the counterparts of all five TPU kernel entries of the JAX
 package: ``raster.cu`` (K1 ``rasterize_corners`` and K1' ``rasterize_indexed``, two
 entries on one pair of kernels, triangle setup and tiles), ``stem_conv.cu`` (K2
-``icn_stem_conv``) and
-``conv_small_cin.cu`` (K3 ``conv_small_cin_v2`` and K4 ``conv_small_cin``, two
-entries on one kernel); the two conv sources are loaders around the shared main
-loops of ``conv_core.cuh``. A fourth, ``nms.cu``, holds N1, the Mask R-CNN's greedy
-NMS, which ports no TPU kernel (the JAX package scans in XLA). The wrappers and
-their launch counters are in ``ops/cuda_raster.py``, ``ops/cuda_conv.py`` and
+``icn_stem_conv``) and ``conv_small_cin.cu`` (K3 ``conv_small_cin_v2`` and K4
+``conv_small_cin``, two entries on one kernel); the two conv sources are loaders
+around the shared main loops of ``conv_core.cuh``. Two more port no TPU kernel:
+``nms.cu`` holds N1, the Mask R-CNN's greedy NMS (the JAX package scans in XLA), and
+``conv_int8.cu`` N2, the int8 serving tier's convolution (an int8 XLA conv in the
+JAX package). The wrappers and their launch counters are in ``ops/cuda_raster.py``, ``ops/cuda_conv.py`` and
 ``ops/detection.py``.
 
 The sources are compiled with ``nvcc`` for ``sm_90a``, one process per source in
@@ -32,7 +32,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("raster.cu", "stem_conv.cu", "conv_small_cin.cu", "nms.cu")
+SOURCES = ("raster.cu", "stem_conv.cu", "conv_small_cin.cu", "nms.cu", "conv_int8.cu")
 HEADERS = ("fusg_kernels.h", "conv_core.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -132,4 +132,8 @@ def _bind(lib):
     lib.fusg_nms.restype = i
     lib.fusg_nms_smem_bytes.argtypes = [i]
     lib.fusg_nms_smem_bytes.restype = i
+    lib.fusg_conv_int8.argtypes = [p, p, p, p] + [i] * 15 + [p]
+    lib.fusg_conv_int8.restype = i
+    lib.fusg_conv_transpose_int8.argtypes = [p, p, p, p] + [i] * 14 + [p]
+    lib.fusg_conv_transpose_int8.restype = i
     return lib

@@ -6,12 +6,15 @@ reference's int truncation) and pixels move through :func:`scale_and_translate`,
 a faithful copy of ``jax.image.scale_and_translate`` with the linear (triangle)
 kernel: dense per-sample weight matrices applied as two batched contractions.
 ``torch.nn.functional.interpolate`` and ``grid_sample`` use other pixel conventions
-and do not stand in for it.
+and do not stand in for it. The gather-based oracles ``crop_resize_gather`` and
+``stitch_gather`` (JAX :87, :260), the coordinate maps and the host keypoint remap
+``image_ref_to_crop_ref`` (:286) are the reference-parity surface beside them.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -126,6 +129,71 @@ def crop_to_frame_coords(kp_norm: torch.Tensor, window: Window) -> torch.Tensor:
     return torch.stack([x, y], dim=-1)
 
 
+def crop_resize_gather(frame: torch.Tensor, window: Window, out_size: int) -> torch.Tensor:
+    """Gather-based reference of :func:`crop_resize` for one (H, W, C) frame and a
+    window of 0-d fields: cv2's clamping to the window's edge pixels (JAX :87)."""
+    from future_urban_scene_generation_tpu_torch.ops.warp import bilinear_sample_image
+
+    dev = frame.device
+    ar = torch.arange(out_size, dtype=torch.float32, device=dev) + 0.5
+    cols = torch.minimum(torch.clamp(ar * (window.w / out_size) - 0.5, min=0.0),
+                         window.w - 1.0) + window.x_start
+    rows = torch.minimum(torch.clamp(ar * (window.h / out_size) - 0.5, min=0.0),
+                         window.h - 1.0) + window.y_start
+    xs = torch.broadcast_to(cols[None, :], (out_size, out_size))
+    ys = torch.broadcast_to(rows[:, None], (out_size, out_size))
+    return bilinear_sample_image(frame, xs, ys)
+
+
+def frame_to_crop_coords(kp_frame: torch.Tensor, window: Window, out_size: int) -> torch.Tensor:
+    """Frame-pixel keypoints (..., 2) -> out_size^2 crop pixel coordinates (JAX :109)."""
+    x = (kp_frame[..., 0] - window.x_start) * (out_size / window.w)
+    y = (kp_frame[..., 1] - window.y_start) * (out_size / window.h)
+    return torch.stack([x, y], dim=-1)
+
+
+def image_ref_to_crop_ref(kpoints, crop_tl, crop_pad, crop_shape, normalize: bool):
+    """Host keypoint remap image -> crop with out-of-crop invalidation (JAX :286;
+    utils/crop_utils.py:55-88). kpoints (K, 2), -1 marks a missing point; float64."""
+    x_min, y_min = crop_tl
+    x_pad, y_pad = crop_pad
+    crop_h, crop_w = crop_shape[0], crop_shape[1]
+    out = np.array(kpoints, dtype=np.float64, copy=True)
+    for i in range(len(out)):
+        if np.all(out[i] != -1):
+            kx = out[i, 0] - x_min + x_pad
+            ky = out[i, 1] - y_min + y_pad
+            if kx < 0 or ky < 0 or kx >= crop_w or ky >= crop_h:
+                out[i] = (-1.0, -1.0)
+            elif normalize:
+                out[i] = (kx / crop_w, ky / crop_h)
+            else:
+                out[i] = (kx, ky)
+    return out
+
+
+def window_from_mask_bbox(mask: torch.Tensor, window: Window, out_size: int) -> Window:
+    """The reference's square window around the bbox of an (S, S) crop-resolution mask,
+    in frame coordinates (JAX :310; warp_learn/models.py:330-335), as a fixed-shape
+    reduction; ``window`` has 0-d fields."""
+    s = mask.shape[0]
+    idx = torch.arange(s, device=mask.device)
+    cols = mask.any(dim=0)
+    rows = mask.any(dim=1)
+    x_min = torch.where(cols, idx, s).amin()
+    x_max = torch.where(cols, idx, -1).amax()
+    y_min = torch.where(rows, idx, s).amin()
+    y_max = torch.where(rows, idx, -1).amax()
+
+    def fx(c):
+        return window.x_start + (c + 0.5) * window.w / s - 0.5
+
+    def fy(c):
+        return window.y_start + (c + 0.5) * window.h / s - 0.5
+
+    return square_window_from_bbox(torch.stack([fx(x_min), fy(y_min), fx(x_max), fy(y_max)]))
+
+
 def inside_window(window: Window, h: int, w: int, device) -> torch.Tensor:
     """(B, h, w) bool: frame pixels inside each window (fields (B,))."""
     xs = torch.arange(w, dtype=torch.float32, device=device)[None, None, :]
@@ -181,3 +249,21 @@ def stitch_packed(frame: torch.Tensor, crop_img: torch.Tensor, window: Window,
     inside = inside_window(window, h, w, frame.device)
     write = (inside & (canvas[..., 3] > 0.5))[..., None]
     return torch.where(write, canvas[..., :3], frame)
+
+
+def stitch_gather(frame: torch.Tensor, crop_img: torch.Tensor, window: Window,
+                  mask_frame: torch.Tensor) -> torch.Tensor:
+    """Gather-based reference of :func:`stitch` for one (H, W, C) frame, an (S, S, C)
+    crop, a window of 0-d fields and an (H, W) bool mask (JAX :260)."""
+    from future_urban_scene_generation_tpu_torch.ops.warp import bilinear_sample_image
+
+    h, w = frame.shape[0], frame.shape[1]
+    out_size = crop_img.shape[0]
+    xs_f = torch.arange(w, dtype=torch.float32, device=frame.device)[None, :]
+    ys_f = torch.arange(h, dtype=torch.float32, device=frame.device)[:, None]
+    cx = torch.broadcast_to((xs_f - window.x_start + 0.5) * (out_size / window.w) - 0.5, (h, w))
+    cy = torch.broadcast_to((ys_f - window.y_start + 0.5) * (out_size / window.h) - 0.5, (h, w))
+    sampled = bilinear_sample_image(crop_img, cx, cy)
+    inside = ((xs_f >= window.x_start) & (xs_f < window.x_start + window.w)
+              & (ys_f >= window.y_start) & (ys_f < window.y_start + window.h))
+    return torch.where((inside & mask_frame)[..., None], sampled, frame)

@@ -21,10 +21,19 @@ an older TPU layout of the same function). The CUDA kernel lives in
 ``csrc/conv_small_cin.cu``; ``models.layers`` dispatches gated convs to
 :func:`conv_small_cin_v2`.
 
+Kernel N2, :func:`conv_int8`, is the int8 serving tier's convolution on int8 codes
+(``csrc/conv_int8.cu``: an implicit GEMM on ``mma.sync`` s8 tensor cores, exact
+int32 accumulation, ``float32(acc) * sw[o]`` in the epilogue), for the plain conv and,
+with an input dilation, the transposed conv. It ports no TPU kernel: the JAX package
+runs an int8 XLA convolution (models/layers.py:206, :233). ``models.layers`` quantizes
+and dispatches to it (``quantized_convs``); :func:`conv_int8_plain` is the same
+function in float64, exact for these sums, so kernel and plain version agree bit for
+bit.
+
 Every wrapper takes its plain version for a CPU tensor; a CUDA tensor launches the
 kernel, or raises if the kernel cannot take the shapes. Each wrapper counts its
-launches: ``LAUNCHES`` (K2), ``SMALL_CIN_V2_LAUNCHES`` (K3) and
-``SMALL_CIN_LAUNCHES`` (K4).
+launches: ``LAUNCHES`` (K2), ``SMALL_CIN_V2_LAUNCHES`` (K3), ``SMALL_CIN_LAUNCHES``
+(K4) and ``INT8_LAUNCHES`` (N2).
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ from future_urban_scene_generation_tpu_torch.ops import _kernels
 LAUNCHES = 0
 SMALL_CIN_V2_LAUNCHES = 0
 SMALL_CIN_LAUNCHES = 0
+INT8_LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 _TILE = 16
@@ -303,4 +313,111 @@ def conv_small_cin(x, kernel) -> torch.Tensor:
     out = _launch_small_cin(x, kernel)
     with _COUNT_LOCK:  # scenes of several streams launch from worker threads
         SMALL_CIN_LAUNCHES += 1
+    return out
+
+
+# The largest K = kh * kw * C whose int32 sums of code products stay exact (127^2 K < 2^31).
+_INT8_MAX_K = (2**31 - 1) // (127 * 127)
+
+
+def int8_out_hw(h: int, w: int, k: int, stride: int, pad_lo: int, pad_hi: int,
+                dilation: int, in_dilation: int):
+    """Output size of :func:`conv_int8`: the input dilated by ``in_dilation`` (holes of
+    zeros between pixels), padded ``pad_lo`` / ``pad_hi`` on both axes, convolved with a
+    k x k kernel dilated by ``dilation`` at ``stride`` (lax.conv_general_dilated's
+    geometry)."""
+    def side(n):
+        return ((n - 1) * in_dilation + 1 + pad_lo + pad_hi - dilation * (k - 1) - 1) // stride + 1
+    return side(h), side(w)
+
+
+def conv_int8_plain(xq, wq, sw, out_dtype, *, stride: int = 1, pad_lo: int = 0,
+                    pad_hi: int = 0, dilation: int = 1, in_dilation: int = 1) -> torch.Tensor:
+    """Plain version of N2: int8 codes xq (N, H, W, C) and wq (k, k, C, O) HWIO, scales
+    sw (O,) float32 -> (N, Ho, Wo, O) ``float32(acc) * sw`` in ``out_dtype``. The sums
+    run in float64 on the codes, exact while |acc| <= 127^2 K < 2^53, so the result is
+    the int32 accumulator's."""
+    x = xq.to(torch.float64).permute(0, 3, 1, 2)
+    if in_dilation > 1:
+        n, c, h, w = x.shape
+        xd = x.new_zeros(n, c, (h - 1) * in_dilation + 1, (w - 1) * in_dilation + 1)
+        xd[:, :, ::in_dilation, ::in_dilation] = x
+        x = xd
+    x = F.pad(x, (pad_lo, pad_hi, pad_lo, pad_hi))
+    acc = F.conv2d(x, wq.to(torch.float64).permute(3, 2, 0, 1), stride=stride,
+                   dilation=dilation)
+    return (acc.permute(0, 2, 3, 1).to(torch.float32) * sw).to(out_dtype)
+
+
+def pack_int8_weights(wq):
+    """The kernel's weight operand: HWIO codes (k, k, C, O) -> (O, Kp) int8, k ordered
+    (ky, kx, c) with C padded to a multiple of 16 and K to one of 32 by zero codes.
+    Returns (packed, padded C, Kp)."""
+    kh, kw, c, o = wq.shape
+    cp = _round_up(c, 16)
+    if cp != c:
+        wq = F.pad(wq, (0, 0, 0, cp - c))
+    k = kh * kw * cp
+    kp = _round_up(k, 32)
+    return F.pad(wq.permute(3, 0, 1, 2).reshape(o, k), (0, kp - k)).contiguous(), cp, kp
+
+
+def _check_int8(xq, wq, sw, out_dtype, stride, pad_lo, pad_hi, dilation, in_dilation):
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8 or sw.dtype != torch.float32:
+        raise TypeError("conv_int8: codes must be int8 and the scales float32")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"conv_int8: unsupported output dtype {out_dtype}")
+    if wq.device != xq.device or sw.device != xq.device:
+        raise TypeError("conv_int8: codes and scales must be on one device")
+    if xq.dim() != 4 or wq.dim() != 4 or wq.shape[0] != wq.shape[1]:
+        raise ValueError("conv_int8: x must be (N, H, W, C), w (k, k, C, O)")
+    if wq.shape[2] != xq.shape[-1] or tuple(sw.shape) != (wq.shape[3],):
+        raise ValueError(f"conv_int8: w {tuple(wq.shape)} / sw {tuple(sw.shape)} do not fit "
+                         f"x {tuple(xq.shape)}")
+    if in_dilation > 1 and (stride != 1 or dilation != 1):
+        raise ValueError("conv_int8: an input dilation takes stride 1 and no kernel dilation")
+    if pad_lo < 0 or min(stride, dilation, in_dilation) < 1:
+        raise ValueError("conv_int8: negative padding or a step below 1")
+    k = wq.shape[0]
+    if k * k * _round_up(xq.shape[-1], 16) > _INT8_MAX_K:
+        raise ValueError("conv_int8: K too large for an exact int32 accumulator")
+    ho, wo = int8_out_hw(xq.shape[1], xq.shape[2], k, stride, pad_lo, pad_hi, dilation,
+                         in_dilation)
+    if ho < 1 or wo < 1:
+        raise ValueError("conv_int8: empty output")
+    return ho, wo
+
+
+def conv_int8(xq, wq, sw, out_dtype, *, stride: int = 1, pad_lo: int = 0, pad_hi: int = 0,
+              dilation: int = 1, in_dilation: int = 1) -> torch.Tensor:
+    """N2: see :func:`conv_int8_plain` for the function. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (``fusg_conv_int8``, or with an input
+    dilation ``fusg_conv_transpose_int8``) or raise."""
+    global INT8_LAUNCHES
+    if xq.device.type == "cpu":
+        return conv_int8_plain(xq, wq, sw, out_dtype, stride=stride, pad_lo=pad_lo,
+                               pad_hi=pad_hi, dilation=dilation, in_dilation=in_dilation)
+    if xq.device.type != "cuda":
+        raise ValueError(f"conv_int8: unsupported device {xq.device}")
+    ho, wo = _check_int8(xq, wq, sw, out_dtype, stride, pad_lo, pad_hi, dilation,
+                         in_dilation)
+    n, h, w, c = xq.shape
+    k, o = wq.shape[0], wq.shape[3]
+    wpk, cp, kp = pack_int8_weights(wq)
+    xq = (F.pad(xq, (0, cp - c)) if cp != c else xq).contiguous()
+    sw = sw.contiguous()
+    out = torch.empty((n, ho, wo, o), dtype=out_dtype, device=xq.device)
+    lib = _kernels.load()
+    args = (ctypes.c_void_p(xq.data_ptr()), ctypes.c_void_p(wpk.data_ptr()),
+            ctypes.c_void_p(sw.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            0 if out_dtype == torch.float32 else 1, n, h, w, cp, k, k, o, ho, wo)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(xq.device).cuda_stream)
+    if in_dilation == 1:
+        rc = lib.fusg_conv_int8(*args, stride, pad_lo, pad_lo, dilation, kp, stream)
+    else:
+        rc = lib.fusg_conv_transpose_int8(*args, in_dilation, pad_lo, pad_lo, kp, stream)
+    if rc != 0:
+        raise RuntimeError(f"fusg_conv_int8 launch failed: CUDA error {rc}")
+    with _COUNT_LOCK:  # scenes of several streams launch from worker threads
+        INT8_LAUNCHES += 1
     return out

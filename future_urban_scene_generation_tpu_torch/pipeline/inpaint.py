@@ -13,6 +13,10 @@ Vehicles are erased in turn, each seeing the frames the previous erase left, as 
 reference accumulates into its inpainted frame. A vehicle whose context window is
 empty (the service's padding rows, bbox (0, 0, 0, 0)) writes no pixel in the JAX
 erase either, so it is skipped.
+
+The generators take the int8 serving tier from the caller's scope
+(``models.layers.quantized_convs``): the service erases inside its spec's, where the
+JAX package's process-wide ``MODEL_SPEC`` reaches its erase.
 """
 from __future__ import annotations
 

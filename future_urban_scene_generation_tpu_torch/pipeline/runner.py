@@ -81,6 +81,18 @@ def synthesize_scene(models: Models, cad_bank: CadBank, frame, background,
     return composite(background, geom, icn, vun, perception.cad_idx, spec=spec)
 
 
+def synthesize_scene_staged(models: Models, cad_bank: CadBank, frame, background,
+                            perception: Perception, meter_coords, intrinsic, *,
+                            spec: ModelSpec, vis_res: int = VIS_RES) -> SceneResult:
+    """The JAX ``synthesize_scene_staged`` (:335): the scene split into geometry and
+    generators, two jits there so that each half compiles alone. Eager PyTorch
+    compiles nothing and :func:`synthesize_scene` already runs as those halves
+    (:func:`scene_geometry`, then :func:`generate` and :func:`composite`), so this is
+    that function under the JAX name."""
+    return synthesize_scene(models, cad_bank, frame, background, perception, meter_coords,
+                            intrinsic, spec=spec, vis_res=vis_res)
+
+
 @torch.no_grad()
 def scene_geometry(cad_bank: CadBank, frame, perception: Perception, meter_coords,
                    intrinsic, *, spec: ModelSpec, vis_res: int = VIS_RES) -> SceneGeometry:
@@ -115,7 +127,7 @@ def scene_geometry(cad_bank: CadBank, frame, perception: Perception, meter_coord
         kp3d_s = per_step(cad_bank.keypoints3d[cad_idx]) @ z_rot(theta_n) + tr_n[:, None]
         kp2d_s = project_points_extrinsic(kp3d_s, intrinsic, ext_n)
         visibility = vis.compute_visibility_local(ext_n, kp2d_s, kp3d_s, res=vis_res)[:, :5]
-        polys = torch.trunc(kp2d_s)[:, torch.as_tensor(vis.TEXTURE_PLANES, device=dev)]
+        polys = vis.plane_polygons_2d(torch.trunc(kp2d_s), vis.TEXTURE_PLANES)
 
     # Per-vehicle source tables: the frame in each vehicle's step-0 sketch window.
     with record_function("fusg.src_table"):

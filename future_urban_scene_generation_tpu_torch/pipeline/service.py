@@ -32,7 +32,7 @@ import torch
 
 from future_urban_scene_generation_tpu_torch.config import PipelineConfig
 from future_urban_scene_generation_tpu_torch.geometry import gps
-from future_urban_scene_generation_tpu_torch.models import edgeconnect
+from future_urban_scene_generation_tpu_torch.models import edgeconnect, layers
 from future_urban_scene_generation_tpu_torch.models.detector import BackgroundDiffSegmenter
 from future_urban_scene_generation_tpu_torch.pipeline import checkpoint, inpaint, runner
 from future_urban_scene_generation_tpu_torch.pipeline.stages import Models
@@ -265,7 +265,9 @@ class SceneService:
         hw = tuple(self.frame_hw)
         real = [v for v in range(len(bboxes)) if not inpaint.window_is_empty(bboxes[v], hw)]
         boxes_d = torch.as_tensor(bboxes[real]).to(self.device)
-        with torch.no_grad():
+        # The spec's int8 tier reaches the segmenter's network and the erase, as the
+        # JAX package's process-wide MODEL_SPEC does.
+        with torch.no_grad(), layers.quantized_convs(self.spec.quantized_convs):
             if isinstance(segmenter, BackgroundDiffSegmenter):
                 masks = segmenter.masks(frames_d, boxes_d)
             elif hasattr(segmenter, "masks_for_bboxes"):
@@ -273,9 +275,9 @@ class SceneService:
             else:
                 masks = torch.stack([torch.stack([segmenter(f, b) for b in boxes_d])
                                      for f in frames_d])
-        nets = self.inpaint_models
-        return inpaint.erase_vehicles(nets.edge, nets.inpaint, frames_d, bboxes[real], masks,
-                                      sigma=float(self.cfg.edgeconnect.sigma))
+            nets = self.inpaint_models
+            return inpaint.erase_vehicles(nets.edge, nets.inpaint, frames_d, bboxes[real],
+                                          masks, sigma=float(self.cfg.edgeconnect.sigma))
 
     def run_request(self, frame_id: int, vehicle_ids: List[int]) -> List[Path]:
         """Synthesize the 6 future frames for the selected vehicles; write PNGs."""

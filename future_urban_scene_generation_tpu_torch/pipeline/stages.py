@@ -29,6 +29,7 @@ from future_urban_scene_generation_tpu_torch.geometry.rotations import z_rot
 from future_urban_scene_generation_tpu_torch.geometry.trajectory import rollout_from_meters
 from future_urban_scene_generation_tpu_torch.models.hourglass import HourglassNet, decode_heatmaps
 from future_urban_scene_generation_tpu_torch.models.icn import GResnet
+from future_urban_scene_generation_tpu_torch.models import layers
 from future_urban_scene_generation_tpu_torch.models.layers import instance_norm, seeded_init_
 from future_urban_scene_generation_tpu_torch.models.vgg import VGG19Classifier
 from future_urban_scene_generation_tpu_torch.models.vunet import Vunet
@@ -122,8 +123,9 @@ def perceive(models: Models, spec: ModelSpec, frame, bboxes) -> Perception:
     mean = torch.tensor(IMAGENET_MEAN, device=frame.device)
     std = torch.tensor(IMAGENET_STD, device=frame.device)
     norm = (_maybe_flip_rgb(spec, crop) - mean) / std
-    logits = models.cad(norm)
-    heat = models.hourglass(norm)[-1]
+    with layers.quantized_convs(spec.quantized_convs):
+        logits = models.cad(norm)
+        heat = models.hourglass(norm)[-1]
     kp_frame = cr.crop_to_frame_coords(decode_heatmaps(heat), window)
     return Perception(torch.argmax(logits, dim=-1), kp_frame, window, crop)
 
@@ -373,8 +375,30 @@ def icn_synthesize_batch(models: Models, spec: ModelSpec, dst_sketches, central_
     )
     x = x + stem.conv.bias.to(x.dtype)
     x = F.relu(instance_norm(x))
-    out = models.icn(x, from_stem=True).to(torch.float32)
+    with layers.quantized_convs(spec.quantized_convs):
+        out = models.icn(x, from_stem=True).to(torch.float32)
     return cs.lab_to_rgb((out + 1.0) / 2.0)
+
+
+def icn_synthesize(models: Models, spec: ModelSpec, dst_sketch, central_patch_lab,
+                   planes_warped_lab):
+    """One vehicle-step's ICN (JAX :534): dst_sketch (256, 256, 3) RGB, the central
+    patch (256, 256, 3) and planes (5, 256, 256, 3) in signed LAB -> RGB (256, 256, 3)."""
+    return icn_synthesize_batch(models, spec, dst_sketch[None], central_patch_lab[None],
+                                planes_warped_lab[None])[0]
+
+
+def vunet_encode_appearance(models: Models, spec: ModelSpec, frame, src_sketch, src_mask,
+                            src_window: cr.Window) -> List[torch.Tensor]:
+    """One vehicle's appearance means (JAX :631), leading batch 1; the window's
+    fields are 0-d."""
+    return vunet_encode_appearance_batch(models, spec, frame, src_sketch[None], src_mask[None],
+                                         src_window.map(lambda f: f.reshape(1)))
+
+
+def vunet_synthesize(models: Models, spec: ModelSpec, dst_sketch, mu_app):
+    """One step's VUNet decode (JAX :661) from means with leading batch 1."""
+    return vunet_decode_batch(models, spec, dst_sketch[None], mu_app)[0]
 
 
 def vunet_encode_appearance_batch(models: Models, spec: ModelSpec, frame, src_sketches,
@@ -385,14 +409,17 @@ def vunet_encode_appearance_batch(models: Models, spec: ModelSpec, frame, src_sk
     masked = torch.where(src_masks[..., None], veh, torch.ones_like(veh))
     sketches = _maybe_flip_rgb(spec, src_sketches)
     x = torch.cat([masked * 2.0 - 1.0, sketches * 2.0 - 1.0], dim=-1).to(spec.gen_dtype)
-    return models.vunet.encode_appearance(x)
+    # The int8 tier leaves VUNet float (layers.suppress_quantization), as JAX :653-657.
+    with layers.suppress_quantization():
+        return models.vunet.encode_appearance(x)
 
 
 def vunet_decode_batch(models: Models, spec: ModelSpec, dst_sketches, mu_app):
     """One batch-N VUNet shape decode; each ``mu_app`` entry has leading N."""
     dtype = spec.gen_dtype
     y_tilde = (_maybe_flip_rgb(spec, dst_sketches) * 2.0 - 1.0).to(dtype)
-    out = models.vunet.decode_shape(y_tilde, [m.to(dtype) for m in mu_app])
+    with layers.suppress_quantization():  # JAX :674-678
+        out = models.vunet.decode_shape(y_tilde, [m.to(dtype) for m in mu_app])
     return torch.clamp((out.to(torch.float32) + 1.0) / 2.0, 0.0, 1.0)
 
 

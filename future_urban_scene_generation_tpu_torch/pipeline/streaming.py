@@ -26,6 +26,7 @@ from typing import Deque, Optional, Tuple
 import numpy as np
 import torch
 
+from future_urban_scene_generation_tpu_torch.models import layers
 from future_urban_scene_generation_tpu_torch.pipeline import runner as _runner
 from future_urban_scene_generation_tpu_torch.pipeline import tracking as trk
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
@@ -233,15 +234,19 @@ class TrackingStreamRunner(StreamRunner):
         construct the runner with ``overlap_detect=False``."""
         frame_d = self._upload(frame, self.device)  # for detect + scene, uploaded once
         overlapped = self.overlap_detect and hasattr(self.detector, "dispatch")
+        # The detector's forward runs on the stream's int8 tier as the scene does: the
+        # JAX package's process-wide knob reaches its jitted MaskRCNNDetector too.
         if overlapped:
-            handle = self.detector.dispatch(frame_d)
+            with layers.quantized_convs(self.spec.quantized_convs):
+                handle = self.detector.dispatch(frame_d)
             prev = self._pending_detect
             self._pending_detect = handle
             if prev is None:  # first frame: nothing to finalize yet
                 return None, self._confirmed()
             boxes, _scores = self.detector.finalize(prev)
         else:
-            boxes, _scores = self.detector(frame_d)
+            with layers.quantized_convs(self.spec.quantized_convs):
+                boxes, _scores = self.detector(frame_d)
         confirmed = self.tracker.update(boxes)
 
         sel_boxes, sel_meters = [], []

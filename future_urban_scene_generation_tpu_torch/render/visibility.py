@@ -1,7 +1,8 @@
 """Texture-plane topology and painter's-algorithm plane visibility, batched.
 
-Counterpart of the JAX package's render/visibility.py (``compute_visibility_local``
-:69, ``compute_visibility`` :98, ``_demote_covisible_pairs`` :127).
+Counterpart of the JAX package's render/visibility.py (``plane_polygons_2d`` :56,
+``compute_visibility_local`` :69, ``compute_visibility`` :98,
+``_demote_covisible_pairs`` :127).
 """
 from __future__ import annotations
 
@@ -32,6 +33,11 @@ ALL_PLANES = np.concatenate([TEXTURE_PLANES, OCCLUSION_PLANES], axis=0)  # (7, 6
 SYMMETRY_PAIR = (0, 1)
 OPPOSITE_PAIR = (3, 4)
 NUM_TEXTURE_PLANES = TEXTURE_PLANES.shape[0]
+
+
+def plane_polygons_2d(kpoints_2d, planes_idx=ALL_PLANES):
+    """(..., P, 6, 2) plane polygons gathered from (..., 12, 2) keypoints (JAX :56)."""
+    return kpoints_2d[..., torch.as_tensor(planes_idx, device=kpoints_2d.device), :]
 
 
 def camera_plane_distances(extrinsic, kpoints_3d):

@@ -30,6 +30,11 @@ class ModelSpec:
     generator_dtype: str = "float32"
     # Closed-form 4-point homography for the roof/front/back planes.
     quad_homography: bool = True
+    # The int8 serving tier (JAX stages.py:138-146): every conv with C_in, C_out >= 32
+    # of the forwards the stages run with this spec goes through models.layers'
+    # int8 path (kernel N2) — perception, ICN, and on the inpaint branch EdgeConnect
+    # and Mask R-CNN; VUNet stays float (layers.suppress_quantization).
+    quantized_convs: bool = False
 
     def __post_init__(self):
         if self.generator_dtype not in ("float32", "bfloat16"):
