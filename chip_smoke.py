@@ -19,16 +19,20 @@ trains EdgeConnect's edge and inpainting models at full width through ``cli.trai
 (batch 4, 256^2, a resume, ``--vgg-weights``), times them, holds one step on the card
 against the CPU, and serves the runs back through ``cli/export_zoo`` and the zoo
 loader; no kernel of the port is on that path. The int8 phase drives the int8 serving
-tier (``ModelSpec.quantized_convs``): kernel N2 against its plain version bit for bit
-at every conv shape the quantized bench scene and the quantized erase launch it at
-(plus a transposed, a dilated and an all-+127 case), the card's codes against the
-CPU's, N2's times beside ``torch._int_mm`` and cuDNN's bf16 conv as yardsticks, the
-JAX package's quality bars at full width, then ``run_scene`` on the bench scene with
-the tier on.
+tier (``ModelSpec.quantized_convs``): kernel N2 (wgmma, transposed convs as phase
+convs) against its plain version bit for bit at every conv shape the quantized bench
+scene and the quantized erase run (plus every instantiation of its plan and an
+all-+127 case), kernel N3 (the quantization) against the torch composition on the
+card and the CPU, N2's times beside ``torch._int_mm`` and cuDNN's bf16 conv as
+yardsticks, N3's beside the torch composition, the device-time split of one quantized
+ICN forward (N2, N3, the rest), the JAX package's quality bars at full width, then
+``run_scene`` on the bench scene with the tier on.
 
     python3 chip_smoke.py                    # every phase, one GPU
     python3 chip_smoke.py --phases k3,train  # a subset (device and build always run)
-    python3 chip_smoke.py --phases int8      # the int8 tier and kernel N2 alone
+    python3 chip_smoke.py --phases int8      # the int8 tier, kernels N2 and N3, alone
+    python3 chip_smoke.py --icn-split DIR    # only the quantized ICN forward's split, of
+                                             # the port under DIR (an earlier commit)
     python3 chip_smoke.py --profile          # also profile one scene and one EdgeConnect step each
 
 The k1 phase holds K1 and K1' (two CUDA launches a call: triangle setup, tiles) at
@@ -37,11 +41,11 @@ kernel's table bit for bit, the tile kernel's per-tile counts, images and masks;
 profiled call must show those two kernels on the device and nothing else.
 
 Kernel launches in the ``kernels`` line, each counted over its own path with the
-counters set to 0 just before: K1 and K2 from the main phase's scenes, N2 from the
-int8 phase's quantized scenes, K3 from the train phase's CLI run, K1' from the demo,
-N1 from the maskrcnn phase's CLI request (N1 and N2 port no TPU kernel: the JAX
-package's NMS is a ``lax.scan``, its int8 conv an XLA convolution); K4's entry has no
-caller on any path.
+counters set to 0 just before: K1 and K2 from the main phase's scenes, N2 and N3 from
+the int8 phase's quantized scenes, K3 from the train phase's CLI run, K1' from the
+demo, N1 from the maskrcnn phase's CLI request (N1, N2 and N3 port no TPU kernel: the
+JAX package's NMS is a ``lax.scan``, its int8 conv an XLA convolution with XLA's
+quantization ops around it); K4's entry has no caller on any path.
 ``bound_ms`` is the larger of bytes over 3.35 TB/s and operations over the card's
 peak for the kernel's type (the H100 SXM's published 67 TFLOP/s float32, 989 TFLOP/s
 bf16, 1,979 TOP/s int8), from this run's inputs (the raster's operations are counted from the bboxes of
@@ -145,6 +149,11 @@ def phase_build():
     for line in _kernels.BUILD_LOG.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
+            for tag in ("conv_int8_wgmma_kernel", "amax_kernel", "codes_kernel"):
+                if tag in name:  # N2 <N, output type>, N3's two kernels <input type[, V]>
+                    ints = re.findall(r"Li(\d+)E", name)
+                    kind = "bf16" if "bfloat16" in name else "f32"
+                    name = f"{tag}<{','.join(ints[:1] + [kind] + ints[1:])}>"
             for tag in ("raster_setup_kernel", "raster_tiles_kernel", "conv_mma_kernel",
                         "conv_wgmma_kernel", "conv_fma_kernel"):
                 if tag in name:
@@ -174,8 +183,9 @@ def phase_build():
         for line in sass.splitlines():
             if "Function :" in line:
                 fn = line.split(":")[1].strip()
-            elif "HMMA." in line or "HGMMA." in line or "IMMA." in line:
+            elif "HMMA." in line or "HGMMA." in line or "IMMA." in line or "IGMMA." in line:
                 kind = ("wgmma (HGMMA)" if "HGMMA." in line else
+                        "int8 wgmma (IGMMA)" if "IGMMA." in line else
                         "int8 mma.sync (IMMA)" if "IMMA." in line else "mma.sync (HMMA)")
                 counts[(fn, kind)] = counts.get((fn, kind), 0) + 1
         for (fn, kind), n in sorted(counts.items()):
@@ -185,9 +195,13 @@ def phase_build():
         if found != (4, 2):
             raise AssertionError(f"{found} of the (4 mma.sync, 2 wgmma) bf16 conv kernels hold "
                                  "their tensor-core instructions")
-        n_int8 = len({fn for fn, kind in counts if "conv_int8_kernel" in fn and "IMMA" in kind})
-        if n_int8 != 2:
-            raise AssertionError(f"{n_int8} of the 2 int8 conv kernels (N2) hold IMMA")
+        # N2: every instantiation (N = 64, 128, 256 x float32, bf16 out) on the warpgroup
+        # int8 MMA; int8_plan keeps no mma.sync route.
+        n_int8 = len({fn for fn, kind in counts
+                      if "conv_int8_wgmma_kernel" in fn and "IGMMA" in kind})
+        if n_int8 != 6 or any("IMMA" in kind for _, kind in counts):
+            raise AssertionError(f"{n_int8} of the 6 int8 conv kernels (N2) hold IGMMA, or an "
+                                 "int8 mma.sync (IMMA) is left")
     else:
         log("  sass: cuobjdump not found, tensor-core instructions not checked")
 
@@ -1386,31 +1400,38 @@ def _profile_scene(sc, run, scene_ms):
     log("profile: table written to chiprun_out/profile.txt")
 
 
-# int8 serving tier (kernel N2). Bars of the JAX package's tests/test_int8_inference.py:
-# ICN (bf16 + int8) and EdgeConnect's inpaint generator against their own float32 > 27 dB.
+# int8 serving tier (kernels N3 and N2). Bars of the JAX package's
+# tests/test_int8_inference.py: ICN (bf16 + int8) and EdgeConnect's inpaint generator
+# against their own float32 > 27 dB.
 INT8_PSNR_BAR = 27.0
 PEAK_INT8 = 1979e12  # the H100 SXM's published dense int8 tensor-core rate, operations/s
 INT8_ERASE_HW = (720, 1280)
 
 
 def _record_int8_shapes(fn):
-    """Runs ``fn`` with kernel N2's wrapper recording each distinct launch: returns
-    {(x shape, w shape, out dtype, geometry): count}."""
+    """Runs ``fn`` with the tier's conv entry (``cuda_conv.conv_int8_quantized``: N3 then
+    N2) recording each distinct call: returns {(x shape, w shape, out dtype, geometry):
+    count}; the geometry holds ``flip`` (a transposed conv's kernel)."""
     from future_urban_scene_generation_tpu_torch.ops import cuda_conv
 
-    seen, inner = {}, cuda_conv.conv_int8
+    seen, inner = {}, cuda_conv.conv_int8_quantized
 
-    def recording(xq, wq, sw, out_dtype, **geom):
-        key = (tuple(xq.shape), tuple(wq.shape), out_dtype, tuple(sorted(geom.items())))
+    def recording(x, w_hwio, out_dtype, **geom):
+        key = (tuple(x.shape), tuple(w_hwio.shape), out_dtype, tuple(sorted(geom.items())))
         seen[key] = seen.get(key, 0) + 1
-        return inner(xq, wq, sw, out_dtype, **geom)
+        return inner(x, w_hwio, out_dtype, **geom)
 
-    cuda_conv.conv_int8 = recording
+    cuda_conv.conv_int8_quantized = recording
     try:
         fn()
     finally:
-        cuda_conv.conv_int8 = inner
+        cuda_conv.conv_int8_quantized = inner
     return seen
+
+
+def _conv_geom(key):
+    """N2's geometry of a recorded call (``flip`` is N3's)."""
+    return {k: v for k, v in key[3] if k != "flip"}
 
 
 def _int8_work(key):
@@ -1419,8 +1440,8 @@ def _int8_work(key):
     once, the output written once."""
     from future_urban_scene_generation_tpu_torch.ops import cuda_conv
 
-    (n, h, w, c), (k, _, _, o), out_dtype, geom = key
-    g = dict(geom)
+    (n, h, w, c), (k, _, _, o), out_dtype, _ = key
+    g = _conv_geom(key)
     ho, wo = cuda_conv.int8_out_hw(h, w, k, g.get("stride", 1), g.get("pad_lo", 0),
                                    g.get("pad_hi", 0), g.get("dilation", 1),
                                    g.get("in_dilation", 1))
@@ -1433,7 +1454,7 @@ def _int8_work(key):
 
 
 def _int8_codes(key, device, gen, fill=None):
-    (n, h, w, c), (k, _, _, o), out_dtype, geom = key
+    (n, h, w, c), (k, _, _, o), out_dtype, _ = key
     if fill is not None:
         xq = torch.full((n, h, w, c), fill, dtype=torch.int8, device=device)
         wq = torch.full((k, k, c, o), fill, dtype=torch.int8, device=device)
@@ -1443,25 +1464,33 @@ def _int8_codes(key, device, gen, fill=None):
         wq = torch.randint(-127, 128, (k, k, c, o), generator=gen, device=device,
                            dtype=torch.int8)
     sw = torch.rand(o, generator=gen, device=device) * 1e-3 + 1e-5
-    return xq, wq, sw, out_dtype, dict(geom)
+    return xq, wq, sw, out_dtype, _conv_geom(key)
 
 
 def _int8_kernel_checks(shapes, device, report):
     """N2 against its plain version (float64 on the codes, exact) on the card, bit for
     bit, at every recorded shape (after a launch on other codes), then the transposed
-    and dilation-2 forms if the paths had none, then all codes +127. One line a case
-    goes to ``report``. Returns the largest |kernel - plain| over the cases."""
+    and dilation-2 forms if the paths had none, every ``int8_plan`` instantiation (N 64,
+    128, 256 x float32, bfloat16 out) the paths missed, then all codes +127. One line a
+    case goes to ``report``. Returns the largest |kernel - plain| over the cases."""
     from future_urban_scene_generation_tpu_torch.ops import cuda_conv
 
     gen = torch.Generator(device=device).manual_seed(5)
     cases = [(key, None) for key in shapes]
-    geoms = [dict(key[3]) for key in shapes]
+    geoms = [_conv_geom(key) for key in shapes]
     if not any(g.get("in_dilation", 1) > 1 for g in geoms):
         cases.append((((2, 33, 37, 64), (4, 4, 64, 48), torch.float32,
                        (("in_dilation", 2), ("pad_hi", 2), ("pad_lo", 2))), None))
     if not any(g.get("dilation", 1) > 1 for g in geoms):
         cases.append((((2, 40, 36, 96), (3, 3, 96, 80), torch.bfloat16,
                        (("dilation", 2), ("pad_hi", 2), ("pad_lo", 2))), None))
+    seen = {(cuda_conv.int8_plan(key[0][3], key[1][0], key[1][3]).bn, key[2])
+            for key, _ in cases}
+    for bn, o in ((64, 48), (128, 96), (256, 300)):
+        for dt in (torch.float32, torch.bfloat16):
+            if (bn, dt) not in seen:
+                cases.append((((2, 9, 11, 64), (3, 3, 64, o), dt,
+                               (("pad_hi", 1), ("pad_lo", 1))), None))
     cases.append((((2, 24, 24, 256), (5, 5, 256, 64), torch.float32,
                    (("pad_hi", 2), ("pad_lo", 2))), 127))
     max_err = 0.0
@@ -1475,62 +1504,222 @@ def _int8_kernel_checks(shapes, device, report):
         err = float((got.double() - want.double()).abs().max())
         max_err = max(max_err, err)
         k, c = key[1][0], key[0][3]
-        report.append(f"int8[N2 {key[0]} * {key[1]} -> {dt}, {geom}"
+        plan = cuda_conv.int8_plan(c, k, key[1][3], geom.get("in_dilation", 1))
+        report.append(f"int8[N2 {key[0]} * {key[1]} -> {dt}, {geom}, N {plan.bn}, "
+                      f"{plan.phases} phase(s) of {plan.taps}^2 taps"
                       + (f", all codes +127: interior sums 127^2 * {k * k * c} = "
                          f"{127 * 127 * k * k * c}" if fill else "")
                       + f"]: equal to the plain version bit for bit: {ok}, max |diff| {err!r}")
         if not ok:
             raise AssertionError(f"kernel N2 disagrees with its plain version at {key}")
     log(f"int8: N2 equal to its plain version bit for bit at all {len(cases)} cases (the "
-        "paths' shapes, transposed, dilated, all codes +127), each after a launch on other "
-        f"codes; max |kernel - plain| {max_err!r}")
+        "paths' shapes, the phase-packed up stages and the per-phase transposed convs "
+        "among them, every int8_plan instantiation, all codes +127), each after a launch "
+        f"on other codes; max |kernel - plain| {max_err!r}")
+    return max_err
+
+
+def _int8_plan_check(shapes):
+    """``cuda_conv.int8_plan`` against the C plan N2 and N3 run (``fusg_int8_plan``)."""
+    import ctypes
+
+    from future_urban_scene_generation_tpu_torch.ops import _kernels, cuda_conv
+
+    lib = _kernels.load()
+    for key in shapes:
+        c, k, o, s = key[0][3], key[1][0], key[1][3], _conv_geom(key).get("in_dilation", 1)
+        out = (ctypes.c_int * 9)()
+        lib.fusg_int8_plan(c, k, o, s, out)
+        if tuple(out) != tuple(cuda_conv.int8_plan(c, k, o, s)):
+            raise AssertionError(f"int8_plan {cuda_conv.int8_plan(c, k, o, s)} != the kernel's "
+                                 f"{tuple(out)} at {key}")
+    log(f"int8: int8_plan equal to the kernels' plan at all {len(shapes)} shapes")
+
+
+def _n3_inputs(key, device, gen):
+    """A float activation and weight for a recorded call: the weight as the layer hands
+    it, a view (a transposed conv's (in, out, kh, kw) tensor permuted, read flipped)."""
+    (n, h, w, c), (k, _, _, o), dt, _ = key
+    x = (torch.randn((n, h, w, c), generator=gen) * 3).to(dt)
+    if dict(key[3]).get("flip"):
+        w_raw = (torch.randn((c, o, k, k), generator=gen) * 0.05).to(dt)
+        return x, w_raw.permute(2, 3, 0, 1)
+    w_raw = (torch.randn((o, c, k, k), generator=gen) * 0.05).to(dt)
+    return x, w_raw.permute(2, 3, 1, 0)
+
+
+def _n3_checks(shapes, device, report):
+    """N3 on the card against its plain version (``quantize_int8_plain`` + packing) on
+    the card, bit for bit (x codes, weight image, sw), at every recorded shape, and
+    against the CPU's at the three largest. Returns the largest |kernel - plain| over
+    codes and scales."""
+    from future_urban_scene_generation_tpu_torch.ops import cuda_conv
+
+    gen = torch.Generator().manual_seed(24)
+    largest = sorted(shapes, key=lambda key: -math.prod(key[0]))[:3]
+    max_err = 0.0
+    for key in shapes:
+        x, w = _n3_inputs(key, device, gen)
+        g = dict(key[3])
+        kw = dict(in_dilation=g.get("in_dilation", 1), pad_lo=g.get("pad_lo", 0))
+        flip = bool(g.get("flip"))
+        xd, wd = x.to(device), w.to(device)
+        got = cuda_conv.quantize_int8_packed(xd, wd, flip=flip, **kw)
+        want = cuda_conv.quantize_int8_packed_plain(xd, wd.flip(0, 1) if flip else wd, **kw)
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(got, want)]
+        err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, want))
+        max_err = max(max_err, err)
+        cpu = None
+        if key in largest:
+            ref = cuda_conv.quantize_int8_packed_plain(x, w.flip(0, 1) if flip else w, **kw)
+            cpu = all(torch.equal(a.cpu(), b) for a, b in zip(got, ref))
+        report.append(f"int8[N3 {key[0]} * {key[1]} {key[2]} {g}]: (x codes, weight image, "
+                      f"sw) equal to the plain version on the card: {same}; to the CPU's: "
+                      f"{'not checked' if cpu is None else cpu}")
+        if not all(same) or cpu is False:
+            raise AssertionError(f"kernel N3 disagrees with its plain version at {key}")
+    log(f"int8: N3 equal to its plain version bit for bit at all {len(shapes)} shapes (x "
+        "codes, weight image, sw; the weight read through the layer's view, flipped for "
+        "the transposed convs), and to the CPU's at the three largest; max |kernel - plain| "
+        f"{max_err!r}")
     return max_err
 
 
 def _int8_times(key, device, card, report):
-    """N2, its plain version, and two yardsticks the port never calls, at ``key``: the
-    int8 GEMM alone (``torch._int_mm`` on an im2col built beforehand) and cuDNN's
-    bf16 convolution of the same shapes."""
+    """N2 alone (operands packed beforehand), its plain version, and two yardsticks the
+    port never calls: the int8 GEMM alone (``torch._int_mm`` on an im2col built
+    beforehand; plain convs) and cuDNN's bf16 convolution of the same shapes
+    (``F.conv_transpose2d`` for a transposed conv). Then N3 and the torch composition
+    it replaces at the call's activation and weight, with N3's bytes bound."""
     import torch.nn.functional as F
 
     from future_urban_scene_generation_tpu_torch.ops import cuda_conv
 
     gen = torch.Generator(device=device).manual_seed(6)
     xq, wq, sw, dt, geom = _int8_codes(key, device, gen)
-    ms = cuda_ms(lambda: cuda_conv.conv_int8(xq, wq, sw, dt, **geom), iters=10, warmup=2)
+    (n, h, w, c), (k, _, _, o) = key[0], key[1]
+    s, p, stride = geom.get("in_dilation", 1), geom.get("pad_lo", 0), geom.get("stride", 1)
+    ho, wo = cuda_conv.int8_out_hw(h, w, k, stride, p, geom.get("pad_hi", 0),
+                                   geom.get("dilation", 1), s)
+    xq_p = F.pad(xq, (0, cuda_conv.int8_plan(c, k, o, s).cp - c)).contiguous()
+    img = cuda_conv.pack_int8_image(wq, s, p)
+    ms = cuda_ms(lambda: cuda_conv._launch_conv_int8(xq_p, img, sw, dt, c, k, ho, wo, stride, p,
+                                                     geom.get("dilation", 1), s),
+                 iters=10, warmup=2)
     plain_ms = cuda_ms(lambda: cuda_conv.conv_int8_plain(xq, wq, sw, dt, **geom), iters=3)
     ops, n_bytes = _int8_work(key)
     bound, by = bound_ms(n_bytes, ops, PEAK_INT8)
-    c, (k, _, _, o) = key[0][3], key[1]
-    p, stride = geom.get("pad_lo", 0), geom.get("stride", 1)
-    # im2col in int8, rows (n, oy, ox), columns (ky, kx, c): the HWIO weight's order.
-    patches = F.pad(xq, (0, 0, p, p, p, p)).unfold(1, k, stride).unfold(2, k, stride)
-    a = patches.permute(0, 1, 2, 4, 5, 3).reshape(-1, k * k * c).contiguous()
-    b = wq.reshape(k * k * c, o)
-    b_col = b.t().contiguous().t()
-    try:
-        mm_ms = cuda_ms(lambda: torch._int_mm(a, b_col), iters=10, warmup=2)
-        mm_note = "B column-major"
-    except RuntimeError as e:  # a yardstick only: say which layout cuBLASLt took
-        mm_ms = cuda_ms(lambda: torch._int_mm(a, b.contiguous()), iters=10, warmup=2)
-        mm_note = f"B row-major ({str(e).splitlines()[0][:60]})"
     xb = xq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-    wb = wq.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-    bf16_ms = cuda_ms(lambda: F.conv2d(xb, wb, padding=p, stride=stride), iters=10, warmup=2)
-    (log if key[0][0] == 24 else report.append)(  # the ICN's convs on the log
-        f"int8 time at {key[0]} * {key[1]} -> {dt} {geom}: N2 {ms:.4f} ms; plain version "
-        f"(float64 conv on the codes) {plain_ms:.3f} ms; bound {bound:.4f} ms by {by} "
-        f"({ops:.3e} int8 operations at 1,979 TOP/s); yardsticks: torch._int_mm on a prebuilt "
-        f"im2col ({a.shape[0]} x {a.shape[1]} @ {o}, {mm_note}) {mm_ms:.4f} ms, cuDNN bf16 "
-        f"F.conv2d of the same conv {bf16_ms:.4f} ms ({card})")
-    return ms, plain_ms, bound, by, mm_ms, bf16_ms
+    mm_ms = None
+    if s == 1:
+        # im2col in int8, rows (n, oy, ox), columns (ky, kx, c): the HWIO weight's order.
+        d = geom.get("dilation", 1)
+        kd = (k - 1) * d + 1
+        patches = F.pad(xq, (0, 0, p, p, p, p)).unfold(1, kd, stride).unfold(2, kd, stride)
+        a = patches[..., ::d, ::d].permute(0, 1, 2, 4, 5, 3).reshape(-1, k * k * c).contiguous()
+        b_col = wq.reshape(k * k * c, o).t().contiguous().t()
+        mm_ms = cuda_ms(lambda: torch._int_mm(a, b_col), iters=10, warmup=2)
+        wb = wq.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        bf16_ms = cuda_ms(lambda: F.conv2d(xb, wb, padding=p, stride=stride,
+                                           dilation=geom.get("dilation", 1)),
+                          iters=10, warmup=2)
+    else:  # the transposed conv's weight (in, out, kh, kw), unflipped; padding k - 1 - lo
+        wt = wq.flip(0, 1).permute(2, 3, 0, 1).to(torch.bfloat16).contiguous()
+        bf16_ms = cuda_ms(lambda: F.conv_transpose2d(xb, wt, stride=s, padding=k - 1 - p),
+                          iters=10, warmup=2)
+    x, wgt = _n3_inputs(key, device, torch.Generator().manual_seed(7))
+    x, wgt = x.to(device), wgt.to(device)
+    flip = bool(dict(key[3]).get("flip"))
+    n3_ms = cuda_ms(lambda: cuda_conv.quantize_int8_packed(x, wgt, flip=flip, in_dilation=s,
+                                                           pad_lo=p), iters=10, warmup=2)
+    kernel = wgt.flip(0, 1) if flip else wgt
+    n3_plain_ms = cuda_ms(lambda: cuda_conv.quantize_int8_packed_plain(
+        x, kernel, in_dilation=s, pad_lo=p), iters=3)
+    plan = cuda_conv.int8_plan(c, k, o, s)
+    n3_bytes = (nbytes(x, wgt) + n * h * w * plan.cp + img.numel() + 4 * o)
+    n3_bound, n3_by = bound_ms(n3_bytes, 0, PEAK_INT8)
+    line = (f"int8 time at {key[0]} * {key[1]} -> {dt} {geom}: N2 {ms:.4f} ms; plain "
+            f"version (float64 conv on the codes) {plain_ms:.3f} ms; bound {bound:.4f} ms by "
+            f"{by} ({ops:.3e} int8 operations at 1,979 TOP/s); yardsticks: torch._int_mm on a "
+            f"prebuilt im2col " + (f"{mm_ms:.4f} ms" if mm_ms is not None else "n/a (transposed)")
+            + f", cuDNN bf16 {'F.conv2d' if s == 1 else 'F.conv_transpose2d'} {bf16_ms:.4f} ms. "
+            f"N3 {n3_ms:.4f} ms against the torch composition {n3_plain_ms:.4f} ms, bound "
+            f"{n3_bound:.4f} ms by {n3_by} ({n3_bytes / 1e6:.1f} MB) ({card})")
+    (log if n == 24 or s > 1 else report.append)(line)  # the ICN's and transposed on the log
+    return dict(ms=ms, plain_ms=plain_ms, bound=bound, by=by, mm_ms=mm_ms, bf16_ms=bf16_ms,
+                n3_ms=n3_ms, n3_plain_ms=n3_plain_ms, n3_bound=n3_bound, n3_by=n3_by)
+
+
+def icn_int8_split(device="cuda", n=24, hw=256):
+    """Device time of one quantized ICN forward at the scene's batch (N=24, 256^2,
+    bf16 generators + the int8 tier), by kernel: N2 (kernels named ``conv_int8``), the
+    quantization (N3's ``amax_kernel`` / ``codes_kernel``, or, on a tree without N3,
+    the device time under ``layers.quantize_int8`` and ``cuda_conv.pack_int8_weights``)
+    and the rest; with the forward's CUDA-event time, the bf16 forward's, and launches.
+    Runs on whichever port package is first on ``sys.path``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile, record_function
+
+    from future_urban_scene_generation_tpu_torch.models import layers
+    from future_urban_scene_generation_tpu_torch.ops import cuda_conv
+    from future_urban_scene_generation_tpu_torch.pipeline import stages
+    from future_urban_scene_generation_tpu_torch.spec import SERVING_SPEC
+
+    spec_q = SERVING_SPEC.replace(quantized_convs=True)
+    models = stages.Models.build(SERVING_SPEC, torch.Generator().manual_seed(0), device=device)
+    rng = np.random.RandomState(11)
+    f = lambda a: torch.as_tensor(np.float32(a), device=device)  # noqa: E731
+    sk, ce, pl = f(rng.rand(n, hw, hw, 3)), f(rng.rand(n // 6, hw, hw, 3) * 2 - 1), \
+        f(rng.rand(n, 5, hw, hw, 3) * 2 - 1)
+
+    def forward(spec):
+        return stages.icn_synthesize_batch(models, spec, sk, ce, pl, s_repeat=6)
+
+    patched = []
+    for mod, name in ((layers, "quantize_int8"), (cuda_conv, "pack_int8_weights")):
+        fn = getattr(mod, name, None)
+        if fn is not None:
+            def ranged(*a, _fn=fn, **kw):
+                with record_function("fusg.int8_quantize"):
+                    return _fn(*a, **kw)
+            patched.append((mod, name, fn))
+            setattr(mod, name, ranged)
+    try:
+        forward(spec_q)
+        times = {name: cuda_ms(lambda s=s: forward(s), iters=5)
+                 for name, s in (("bf16", SERVING_SPEC), ("bf16 + int8", spec_q))}
+        n2_before = cuda_conv.INT8_LAUNCHES
+        n3_before = getattr(cuda_conv, "QUANT_LAUNCHES", 0)
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            forward(spec_q)
+            torch.cuda.synchronize()
+        launches = (cuda_conv.INT8_LAUNCHES - n2_before,
+                    getattr(cuda_conv, "QUANT_LAUNCHES", 0) - n3_before)
+    finally:
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
+    events = prof.events()
+    kernels = [(e.name, e.time_range.elapsed_us() / 1e3) for e in events
+               if e.device_type == DeviceType.CUDA and not e.name.startswith("fusg.")]
+    total = sum(t for _, t in kernels)
+    n2 = sum(t for name, t in kernels if "conv_int8" in name)
+    n3 = sum(t for name, t in kernels if "amax_kernel" in name or "codes_kernel" in name)
+    torch_quant = sum(e.device_time_total for e in events
+                      if e.name == "fusg.int8_quantize" and e.device_type == DeviceType.CPU) / 1e3
+    quant = n3 + torch_quant
+    return dict(forward_ms=times, device_ms=total, n2_ms=n2, quant_ms=quant,
+                quant_by="N3" if n3 > 0 else "torch ops", rest_ms=total - n2 - quant,
+                n2_launches=launches[0], n3_launches=launches[1])
 
 
 def phase_int8(device, card):
     """The int8 serving tier: N2 against its plain version at every conv shape of the
-    quantized bench scene and erase, codes on the card against the CPU's, times, the
-    JAX package's quality bars at full width, then ``run_scene`` on the bench scene
-    with ``quantized_convs``. Returns (the kernels line's record, launches)."""
+    quantized bench scene and erase and at every instantiation, N3 against its plain
+    version and the CPU, times, the ICN forward's split, the JAX package's quality bars
+    at full width, then ``run_scene`` on the bench scene with ``quantized_convs``.
+    Returns (the kernels line's records, launches)."""
     from future_urban_scene_generation_tpu_torch.models import edgeconnect, layers
     from future_urban_scene_generation_tpu_torch.ops import cuda_conv, cuda_raster
     from future_urban_scene_generation_tpu_torch.pipeline import inpaint, runner, stages, synthetic
@@ -1543,7 +1732,7 @@ def phase_int8(device, card):
         return runner.run_scene(sc.models, sc.cad_bank, sc.frame, sc.background, sc.bboxes,
                                 sc.meters, sc.intrinsic, spec=spec)
 
-    # The shapes each path launches N2 at: the scene, and the erase of 4 vehicles on
+    # The shapes each path runs the tier at: the scene, and the erase of 4 vehicles on
     # 6 frames (EdgeConnect at full width, seeded).
     scene_shapes = _record_int8_shapes(lambda: run(spec_q))
     edge, inp = edgeconnect.build_generators(torch.Generator().manual_seed(21), device=device)
@@ -1562,35 +1751,32 @@ def phase_int8(device, card):
     erase_shapes = _record_int8_shapes(erase)
     report = []
     for label, shapes in (("scene", scene_shapes), ("erase", erase_shapes)):
-        log(f"int8: the quantized {label} launches N2 at {len(shapes)} shapes, "
-            f"{sum(shapes.values())} launches (list in chiprun_out/int8.txt)")
+        log(f"int8: the quantized {label} runs the tier at {len(shapes)} shapes, "
+            f"{sum(shapes.values())} convs (list in chiprun_out/int8.txt)")
         report += [f"{label}: {k[0]} * {k[1][0]}x{k[1][1]} -> {k[1][3]} {dict(k[3])} x{v}"
                    for k, v in shapes.items()]
-    max_err = _int8_kernel_checks({**scene_shapes, **erase_shapes}, device, report)
+    all_shapes = {**scene_shapes, **erase_shapes}
+    _int8_plan_check(all_shapes)
+    max_err = _int8_kernel_checks(all_shapes, device, report)
+    n3_err = _n3_checks(all_shapes, device, report)
 
-    # Codes on the card and on the CPU for one conv (torch's float32 division and
-    # round-half-even on both).
-    gen = torch.Generator().manual_seed(23)
-    x = torch.randn((4, 64, 64, 256), generator=gen) * 3
-    wt = torch.randn((3, 3, 256, 256), generator=gen) * 0.05
-    card_codes = layers.quantize_int8(x.to(device), wt.to(device))
-    cpu_codes = layers.quantize_int8(x, wt)
-    same = [torch.equal(a.cpu(), b) for a, b in zip(card_codes, cpu_codes)]
-    log(f"int8: codes on the card equal to the CPU's (x codes, w codes, sw): {same}")
-    if not all(same):
-        raise AssertionError("int8: the card's codes differ from the CPU's")
-
-    # Times at each distinct shape of the scene; the kernels line takes the trunk conv
-    # (the most launches).
-    timed = {key: _int8_times(key, device, card, report) for key in scene_shapes}
+    # Times at each distinct shape of the scene and the erase; the kernels line takes
+    # the trunk conv (the most launches).
+    timed = {key: _int8_times(key, device, card, report) for key in all_shapes}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "int8.txt"), "w") as fh:
         fh.write("\n".join(report) + "\n")
     trunk = max(scene_shapes, key=lambda k: (scene_shapes[k], _int8_work(k)[0]))
-    per_scene = sum(timed[k][0] * scene_shapes[k] for k in scene_shapes)
-    bound_scene = sum(timed[k][2] * scene_shapes[k] for k in scene_shapes)
-    log(f"int8: N2 in one quantized scene: {per_scene:.3f} ms of kernel time over "
-        f"{sum(scene_shapes.values())} launches against a {bound_scene:.3f} ms bound ({card})")
+    for label, shapes in (("scene", scene_shapes), ("erase", erase_shapes)):
+        per = {name: sum(timed[k][name] * shapes[k] for k in shapes)
+               for name in ("ms", "bound", "n3_ms", "n3_bound")}
+        log(f"int8: one quantized {label}: N2 {per['ms']:.3f} ms of kernel time against a "
+            f"{per['bound']:.3f} ms bound, N3 {per['n3_ms']:.3f} ms against "
+            f"{per['n3_bound']:.3f} ms, over {sum(shapes.values())} convs ({card})")
+
+    split = icn_int8_split(device)
+    log("int8: ICN forward (N=24, 256^2) split by device time: " + json.dumps(split)
+        + f" ({card})")
 
     # The JAX package's quality bars at full width (tests/test_int8_inference.py).
     rng = np.random.RandomState(11)
@@ -1617,14 +1803,10 @@ def phase_int8(device, card):
         vun[spec.quantized_convs] = mu + [stages.vunet_decode_batch(
             sc.models, spec, sk, [m.repeat_interleave(6, 0) for m in mu])]
     vun_equal = all(torch.equal(a, b) for a, b in zip(vun[False], vun[True]))
-    icn_ms = {name: cuda_ms(lambda s=s: stages.icn_synthesize_batch(sc.models, s, sk, ce, pl,
-                                                                     s_repeat=6), iters=5)
-              for name, s in (("bf16", SERVING_SPEC), ("bf16 + int8", spec_q))}
     log(f"int8: quality at full width: ICN (N=24, 256^2) bf16 + int8 vs float32 "
         f"{p_icn:.2f} dB (bf16 alone {_psnr(icn_f, icn_bf):.2f}), EdgeConnect inpaint generator "
         f"(256^2) int8 vs float32 {p_ec:.2f} dB (bars > {INT8_PSNR_BAR}); VUNet float32 with "
-        f"the knob on bit-equal: {vun_equal}. ICN forward ms: " + ", ".join(
-            f"{k} {v:.3f}" for k, v in icn_ms.items()) + f" ({card})")
+        f"the knob on bit-equal: {vun_equal} ({card})")
     if not (p_icn > INT8_PSNR_BAR and p_ec > INT8_PSNR_BAR and vun_equal):
         raise AssertionError("int8: a quality bar of the JAX package's tests is not met")
 
@@ -1633,7 +1815,8 @@ def phase_int8(device, card):
     run(spec_q)
     torch.cuda.synchronize()
     log(f"int8: first quantized scene after the checks {time.perf_counter() - t0:.2f} s")
-    cuda_conv.INT8_LAUNCHES = cuda_conv.LAUNCHES = cuda_raster.LAUNCHES = 0
+    cuda_conv.INT8_LAUNCHES = cuda_conv.QUANT_LAUNCHES = cuda_conv.LAUNCHES = 0
+    cuda_raster.LAUNCHES = 0
     times, res = [], None
     for _ in range(MAIN_SCENES):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1642,8 +1825,8 @@ def phase_int8(device, card):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    launches = {"conv_int8": cuda_conv.INT8_LAUNCHES, "raster": cuda_raster.LAUNCHES,
-                "icn_stem_conv": cuda_conv.LAUNCHES}
+    launches = {"conv_int8": cuda_conv.INT8_LAUNCHES, "quant_int8": cuda_conv.QUANT_LAUNCHES,
+                "raster": cuda_raster.LAUNCHES, "icn_stem_conv": cuda_conv.LAUNCHES}
     for name, frames_out in (("icn", res.frames_icn), ("vunet", res.frames_vunet)):
         if tuple(frames_out.shape) != (6, 1080, 1920, 3) or not bool(
                 torch.isfinite(frames_out).all()):
@@ -1664,17 +1847,26 @@ def phase_int8(device, card):
         f"bf16 alone, same call: median {statistics.median(float_times):.2f} ms); launches a "
         f"scene: " + ", ".join(f"{k} {v / MAIN_SCENES:g}" for k, v in launches.items())
         + f"; frames finite ({card})")
-    ms, plain_ms, bound, by, mm_ms, bf16_ms = timed[trunk]
-    record = dict(name="conv_int8", route="cuda",
-                  source="future_urban_scene_generation_tpu_torch/csrc/conv_int8.cu",
-                  replaces="none: not a TPU kernel port (the JAX _int8_conv / "
-                           "_int8_conv_transpose, future_urban_scene_generation_tpu/models/"
-                           "layers.py:178, :218, run an int8 conv in XLA)",
-                  max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                  library_ms=None)
-    log(f"int8: kernels line row at the trunk conv {trunk[0]} * {trunk[1]}: no PyTorch call "
-        f"computes an int8 convolution on CUDA (library_ms null; yardsticks above)")
-    return record, launches
+    t = timed[trunk]
+    records = [
+        dict(name="conv_int8", route="cuda",
+             source="future_urban_scene_generation_tpu_torch/csrc/conv_int8.cu",
+             replaces="none: not a TPU kernel port (the JAX _int8_conv / _int8_conv_transpose, "
+                      "future_urban_scene_generation_tpu/models/layers.py:178, :218, run an "
+                      "int8 conv in XLA)",
+             max_abs_err=max_err, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound"],
+             bound_by=t["by"], library_ms=None),
+        dict(name="quant_int8", route="cuda",
+             source="future_urban_scene_generation_tpu_torch/csrc/quant_int8.cu",
+             replaces="none: not a TPU kernel port (the JAX _int8_conv's quantization, "
+                      "future_urban_scene_generation_tpu/models/layers.py:197-205, XLA ops)",
+             max_abs_err=n3_err, ms=t["n3_ms"], plain_ms=t["n3_plain_ms"],
+             bound_ms=t["n3_bound"], bound_by=t["n3_by"], library_ms=None),
+    ]
+    log(f"int8: kernels line rows at the trunk conv {trunk[0]} * {trunk[1]}: no PyTorch call "
+        f"computes an int8 convolution on CUDA or the tier's quantization (library_ms null; "
+        f"yardsticks above)")
+    return records, launches
 
 
 def phase_demo(device, card):
@@ -2912,7 +3104,18 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--icn-split", metavar="PACKAGE_ROOT",
+                    help="only the device-time split of one quantized ICN forward, of the "
+                         "port package under PACKAGE_ROOT (e.g. an unpacked earlier commit)")
     args = ap.parse_args()
+    if args.icn_split:
+        name, smi = phase_device()
+        sys.path.insert(0, os.path.abspath(args.icn_split))
+        from future_urban_scene_generation_tpu_torch.ops import _kernels
+
+        _kernels.load()
+        log(f"icn split of {_kernels.__file__}: " + json.dumps(icn_int8_split()) + f" ({smi})")
+        return
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(ALL_PHASES)
     if unknown:
@@ -2935,9 +3138,10 @@ def main():
     if "main" in phases:
         launches = phase_main(device, args.profile, smi)
     if "int8" in phases:
-        record, int8_launches = phase_int8(device, smi)
-        kernels.append(record)
+        records, int8_launches = phase_int8(device, smi)
+        kernels.extend(records)
         launches["conv_int8"] = int8_launches["conv_int8"]
+        launches["quant_int8"] = int8_launches["quant_int8"]
     if "train" in phases:
         launches.update(phase_train(device, smi))
     if "demo" in phases:

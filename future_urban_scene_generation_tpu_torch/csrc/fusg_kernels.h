@@ -69,18 +69,34 @@ int fusg_nms_smem_bytes(int n);
 
 // N2 (conv_int8.cu): int8 codes convolved with exact int32 accumulation, then
 // out = float32(acc) * sw[o] as float32 (out_dtype 0) or bfloat16 (1), NHWC.
-//   x (n, h, w, c) s8 with c % 16 == 0; wpk (cout, kp) s8: HWIO codes ordered
-//   (ky, kx, c), zero codes past kh * kw * c up to kp (a multiple of 32); sw (cout,) f32;
-//   out (n, ho, wo, cout). The conv: stride, low padding (pad_y, pad_x), dilation; the
-//   transposed conv: the input dilated by in_dilation, an already flipped kernel, low
-//   padding; the high side follows from (ho, wo). Not a TPU kernel port (XLA int8 conv).
-int fusg_conv_int8(const void* x, const void* wpk, const float* sw, void* out, int out_dtype,
-                   int n, int h, int w, int c, int kh, int kw, int cout, int ho, int wo,
-                   int stride, int pad_y, int pad_x, int dil, int kp, cudaStream_t stream);
-int fusg_conv_transpose_int8(const void* x, const void* wpk, const float* sw, void* out,
-                             int out_dtype, int n, int h, int w, int c, int kh, int kw,
-                             int cout, int ho, int wo, int in_dilation, int pad_y, int pad_x,
-                             int kp, cudaStream_t stream);
+//   x (n, h, w, round16(c)) s8; wimg: the weight codes as N3 writes them, the
+//   128-byte-swizzled image of every (phase, output tile, K-block) tile
+//   (int8_plan.cuh); sw (cout,) f32; out (n, ho, wo, cout). The conv: k x k, stride,
+//   low padding (pad_y, pad_x), dilation; the transposed conv of stride s (the kernel
+//   flipped, low padding lo = k - 1 - p): s * s phase convs of the undilated input. The
+//   high side follows from (ho, wo). Not a TPU kernel port (XLA int8 conv).
+int fusg_conv_int8(const void* x, const void* wimg, const float* sw, void* out, int out_dtype,
+                   int n, int h, int w, int c, int k, int cout, int ho, int wo, int stride,
+                   int pad_y, int pad_x, int dil, cudaStream_t stream);
+int fusg_conv_transpose_int8(const void* x, const void* wimg, const float* sw, void* out,
+                             int out_dtype, int n, int h, int w, int c, int k, int cout,
+                             int ho, int wo, int stride, int lo_y, int lo_x,
+                             cudaStream_t stream);
+// The plan of a conv of c input and cout output channels (phase_s: the transposed
+// conv's stride, else 1), what ops/cuda_conv.py int8_plan mirrors: out[9] = bn, bk,
+// stages, smem, phases, taps, cp, k_img, o_tiles.
+int fusg_int8_plan(int c, int k, int cout, int phase_s, int* out);
+
+// N3 (quant_int8.cu): the int8 tier's quantization of one conv's operands for N2.
+//   x (n, h, w, c) f32 (dtype 0) or bf16 (1), contiguous; wt: the HWIO kernel in x's
+//   dtype at element strides (s_ky, s_kx, s_c, s_o), negative for a flipped view;
+//   amax (c,) u32 scratch; xq (n, h, w, round16(c)) s8 out; wimg (phases * o_tiles *
+//   k_img * bn) s8 out; sw (cout,) f32 out. phase_s, lo: a transposed conv's stride
+//   and low padding (1, 0 for the conv). Zeroes amax, then two launches.
+int fusg_quant_int8(const void* x, int dtype, int n, int h, int w, int c, const void* wt,
+                    long long s_ky, long long s_kx, long long s_c, long long s_o, int k,
+                    int cout, int phase_s, int lo, unsigned* amax, void* xq, void* wimg,
+                    float* sw, cudaStream_t stream);
 
 #ifdef __cplusplus
 }

@@ -7,7 +7,8 @@ scene computes the stem (enc_content.model.0: reflect-pad 3, 7x7 conv, instance
 norm, ReLU) with kernel K2 and enters the network after it; the trainer runs the
 full forward, whose stem conv is kernel K3. Module names are the reference's
 (warp_learn/models.py:38-208), so ``gnet_*.pth`` loads unchanged; the decoder's up
-stages are the plain nearest-2x upsample + reflect-pad + 5x5 conv of the reference.
+stages are the plain nearest-2x upsample + reflect-pad + 5x5 conv of the reference in
+float, and the JAX package's phase-packed int8 contraction on the int8 tier.
 """
 from __future__ import annotations
 
@@ -19,11 +20,9 @@ from future_urban_scene_generation_tpu_torch.models.layers import (
     WarpLearnLayerNorm,
     activation,
     avg_pool_torch,
-    conv_nhwc_int8,
     instance_norm,
     reflect_pad,
-    suppress_quantization,
-    upconv5_int8_eligible,
+    upconv2x_nearest_reflect,
     upsample2x_nearest,
 )
 from future_urban_scene_generation_tpu_torch.ops.resize import resize_nearest
@@ -56,20 +55,16 @@ class Conv2dBlock(nn.Module):
 
 
 class UpConv2dBlock(Conv2dBlock):
-    """An up stage's reflect-pad(2) -> 5x5 conv -> layer norm -> ReLU on the
-    upsampled field, routed as the JAX ``upconv2x_nearest_reflect`` (layers.py:1045-1063):
-    on the int8 tier by the gate of its phase-packed kernel
-    (``layers.upconv5_int8_eligible``), else the float conv with the tier off."""
+    """An up stage on its SOURCE x: nearest-2x upsample -> reflect-pad(2) -> 5x5 conv
+    -> layer norm -> ReLU (the decoder's ``Upsample2x`` slot and this block), the conv
+    routed as the JAX ``upconv2x_nearest_reflect`` (``layers.upconv2x_nearest_reflect``:
+    the phase-packed int8 contraction on the tier, else the plain float composition)."""
 
     def __init__(self, cin, cout):
         super().__init__(cin, cout, 5, 1, 2, "ln", "relu")
 
     def forward(self, x):
-        u = reflect_pad(x, self.padding)
-        if upconv5_int8_eligible(x, self.conv.weight.shape[0]):
-            return self._post(conv_nhwc_int8(u, self.conv.weight, self.conv.bias))
-        with suppress_quantization():
-            return self._post(self.conv(u))
+        return self._post(upconv2x_nearest_reflect(x, self.conv.weight, self.conv.bias))
 
 
 class ResBlock(nn.Module):
@@ -96,7 +91,9 @@ class ResBlocks(nn.Module):
 
 
 class Upsample2x(nn.Module):
-    """The parameter-free nn.Upsample slot of the reference's decoder Sequential."""
+    """The parameter-free nn.Upsample slot of the reference's decoder Sequential. The
+    decoder skips it: the ``UpConv2dBlock`` after it takes the source and upsamples
+    itself (on the int8 tier it never builds the upsampled field)."""
 
     def forward(self, x):
         return upsample2x_nearest(x)
@@ -131,7 +128,8 @@ class Decoder(nn.Module):
 
     def forward(self, x):
         for layer in self.model:
-            x = layer(x)
+            if not isinstance(layer, Upsample2x):  # the next block upsamples its source
+                x = layer(x)
         return x
 
 

@@ -6,15 +6,17 @@ weight-normalized conv (``WNConv`` :831), both dispatching gated convs to kernel
 as ``_dispatch_conv`` (:588) does, the training-mode spectral-norm conv and
 transposed conv (``SNConv`` :714, ``SNConvTranspose`` :771), ``instance_norm`` (:865) with float32
 statistics, ``avg_pool_torch`` (:943), the ICN's
-``WarpLearnLayerNorm`` (:879), TF-ordered ``depth_to_space`` (:968) and the nearest
-2x upsample the ICN decoder composes with a reflect-padded 5x5 conv, as the plain
-``upconv2x_nearest_reflect_reference`` (:1009) does.
+``WarpLearnLayerNorm`` (:879), TF-ordered ``depth_to_space`` (:968) and the ICN's
+up-stage conv (:func:`upconv2x_nearest_reflect`: the plain nearest-2x upsample +
+reflect-padded 5x5 conv of ``upconv2x_nearest_reflect_reference`` (:1009) in float,
+the phase-packed rewrite of ``upconv2x_nearest_reflect`` (:1029) on the int8 tier).
 
 The int8 serving tier (``ModelSpec.quantized_convs``, JAX layers.py:140-303): inside
 an enabled :func:`quantized_convs` scope (:func:`suppress_quantization` is the disabled
 one), a conv that is :func:`int8_eligible` (float32 or bfloat16, C_in >= 32, C_out >= 32) and
-not taken by K3's gate first quantizes its input and weight (:func:`quantize_int8`, op
-for op the JAX ``_int8_conv``) and runs on kernel N2; the transposed conv likewise.
+not taken by K3's gate first quantizes its input and weight (kernel N3 on the card,
+:func:`quantize_int8` on the CPU, op for op the JAX ``_int8_conv``) and runs on kernel
+N2; the transposed conv likewise.
 Where each conv of the port goes with the tier on, beside its JAX counterpart:
 
 * ``vgg.VGG19Classifier`` / ``VGG19Features`` (JAX vgg.py:67 ``TorchConv``): int8 but
@@ -24,14 +26,13 @@ Where each conv of the port goes with the tier on, beside its JAX counterpart:
   12) and ``score_`` (C_in 12).
 * ``icn.GResnet`` (JAX icn.py:45, layers.py:1063): the stem stays kernel K2 in the
   scene (K3 in the trainer's full forward; the JAX stem, C_in 21, stays float); the
-  down convs and the 12 residual convs int8; each up stage int8 on its 5x5 conv at
-  every pixel of the upsampled, reflect-padded input, where the JAX package quantizes
-  the phase-packed 3x3 rewrite (4 O output channels with their own scales, borders in
-  float) that the port does not carry: there the two tiers differ in rounding, not
-  in function (held at a PSNR). An up stage takes the tier by the JAX gate on that
-  packed kernel (:func:`upconv5_int8_eligible`: C_in >= 32, 4 C_out >= 32, source at
-  least 4x4), else stays float; the 64 -> 3 head float. ``DNLayersMulti`` (JAX
-  icn.py:235-247): int8 but the first (C_in 3) and the last (C_out 1) conv.
+  down convs and the 12 residual convs int8; each up stage as the JAX package
+  quantizes it (:func:`upconv2x_nearest_reflect`): the phase-packed 3x3 contraction
+  to 4 C_out channels at source resolution on int8, the 2-pixel borders in float, by
+  the JAX gate on that packed kernel (:func:`upconv5_int8_eligible`: C_in >= 32,
+  4 C_out >= 32, source at least 4x4), else the plain float composition; the 64 -> 3
+  head float. ``DNLayersMulti`` (JAX icn.py:235-247): int8 but the first (C_in 3)
+  and the last (C_out 1) conv.
 * ``vunet`` (``WNConv2d``; JAX ``WNConv`` :857): int8-eligible, but the stages run both
   VUNet forwards under :func:`suppress_quantization` (JAX stages.py:653-657,
   674-678): float.
@@ -146,39 +147,30 @@ def int8_eligible(x, cout: int) -> bool:
             and x.shape[-1] >= 32 and cout >= 32)
 
 
-def upconv5_int8_eligible(u, cout: int) -> bool:
-    """The int8 gate of an ICN up stage's 5x5 conv, ``u`` the nearest-2x upsampled
-    field (2h, 2w): the JAX package quantizes the stage's phase-packed (3, 3, C_in,
-    4 C_out) kernel at source resolution (layers.py:1048-1063), so its
-    ``_int8_eligible`` reads C_in >= 32 and 4 C_out >= 32, K3's gate is never asked,
-    and a source under 4x4 takes the float reference composition."""
-    return (quantization_active() and u.dtype in (torch.float32, torch.bfloat16)
-            and u.shape[-1] >= 32 and 4 * cout >= 32 and u.shape[1] >= 8
-            and u.shape[2] >= 8)
+def upconv5_int8_eligible(x, cout: int) -> bool:
+    """The int8 gate of an ICN up stage on its source ``x`` (h, w): the JAX package
+    quantizes the stage's phase-packed (3, 3, C_in, 4 C_out) kernel at source
+    resolution (layers.py:1048-1063), so its ``_int8_eligible`` reads C_in >= 32 and
+    4 C_out >= 32, K3's gate is never asked, and a source under 4x4 takes the float
+    reference composition."""
+    return (quantization_active() and x.dtype in (torch.float32, torch.bfloat16)
+            and x.shape[-1] >= 32 and 4 * cout >= 32 and x.shape[1] >= 4
+            and x.shape[2] >= 4)
 
 
-def quantize_int8(x, w_hwio):
-    """The JAX ``_int8_conv``'s quantization (layers.py:195-205), op for op: a
-    per-input-channel activation scale sx = max(max|x| over N, H, W, 1e-12) / 127,
-    folded into the weight (w_eff = w * sx), a per-output-channel weight scale sw from
-    w_eff the same way, and codes round(x / sx), round(w_eff / sw) (half to even,
-    divisions, not reciprocals) clamped to +-127. ``w_hwio`` is already in x's dtype;
-    both go to float32 first. Returns (x codes, w codes, sw)."""
-    sx = torch.clamp(x.abs().amax(dim=(0, 1, 2)).to(torch.float32), min=1e-12) * (1.0 / 127.0)
-    w_eff = w_hwio.to(torch.float32) * sx[None, None, :, None]
-    sw = torch.clamp(w_eff.abs().amax(dim=(0, 1, 2)), min=1e-12) * (1.0 / 127.0)
-    xq = torch.clamp(torch.round(x.to(torch.float32) / sx), -127, 127).to(torch.int8)
-    wq = torch.clamp(torch.round(w_eff / sw), -127, 127).to(torch.int8)
-    return xq, wq, sw
+# The torch composition of the tier's quantization (JAX layers.py:195-205), kernel N3's
+# plain version.
+quantize_int8 = cuda_conv.quantize_int8_plain
 
 
 class _Int8Conv(torch.autograd.Function):
-    """A conv on the int8 tier: forward by kernel N2 (``cuda_conv.conv_int8``) on the
-    codes of :func:`quantize_int8`, output ``float32(acc) * sw`` in x's dtype;
-    backward the float conv's gradients, as the JAX ``_dispatch_conv`` custom VJP
-    (layers.py:603-607). ``transposed``: ``weight`` is a ConvTranspose2d's (in, out,
-    kh, kw), run as the JAX ``_int8_conv_transpose`` (:218-242) does: the kernel
-    flipped, the input dilated by the stride, padding k-1-p on both sides."""
+    """A conv on the int8 tier: forward by ``cuda_conv.conv_int8_quantized`` (kernels
+    N3 and N2 on the card, the torch composition of :func:`quantize_int8` and N2's
+    plain version on the CPU), output ``float32(acc) * sw`` in x's dtype; backward the
+    float conv's gradients, as the JAX ``_dispatch_conv`` custom VJP (layers.py:603-607).
+    ``transposed``: ``weight`` is a ConvTranspose2d's (in, out, kh, kw), run as the JAX
+    ``_int8_conv_transpose`` (:218-242) does: the kernel flipped, the input dilated by
+    the stride, padding k-1-p on both sides (on the card: the stride^2 phase convs)."""
 
     @staticmethod
     def forward(ctx, x, weight, stride: int, padding: int, dilation: int, transposed: bool):
@@ -186,13 +178,13 @@ class _Int8Conv(torch.autograd.Function):
         ctx.geom = (stride, padding, dilation, transposed)
         k = weight.shape[-1]
         if transposed:
-            xq, wq, sw = quantize_int8(x, weight.permute(2, 3, 0, 1).flip(0, 1))
             lo = k - 1 - padding
-            return cuda_conv.conv_int8(xq, wq, sw, x.dtype, pad_lo=lo, pad_hi=lo,
-                                       in_dilation=stride)
-        xq, wq, sw = quantize_int8(x, weight.permute(2, 3, 1, 0))
-        return cuda_conv.conv_int8(xq, wq, sw, x.dtype, stride=stride, pad_lo=padding,
-                                   pad_hi=padding, dilation=dilation)
+            return cuda_conv.conv_int8_quantized(x, weight.permute(2, 3, 0, 1), x.dtype,
+                                                 flip=True, pad_lo=lo, pad_hi=lo,
+                                                 in_dilation=stride)
+        return cuda_conv.conv_int8_quantized(x, weight.permute(2, 3, 1, 0), x.dtype,
+                                             stride=stride, pad_lo=padding, pad_hi=padding,
+                                             dilation=dilation)
 
     @staticmethod
     def backward(ctx, grad):
@@ -244,16 +236,22 @@ def conv_transpose_nhwc(x, weight, bias, stride: int = 2, padding: int = 1):
     return y if bias is None else y + bias.to(y.dtype)
 
 
+def _reflect_index(n: int, pad: int, device):
+    i = torch.arange(-pad, n + pad, device=device).abs()
+    return torch.where(i >= n, 2 * (n - 1) - i, i)
+
+
 def reflect_pad(x, pad: int):
     """torch ReflectionPad2d(pad) on NHWC, as an index gather (layout kept)."""
     if pad == 0:
         return x
+    return x[:, _reflect_index(x.shape[1], pad, x.device)][
+        :, :, _reflect_index(x.shape[2], pad, x.device)]
 
-    def idx(n):
-        i = torch.arange(-pad, n + pad, device=x.device).abs()
-        return torch.where(i >= n, 2 * (n - 1) - i, i)
 
-    return x[:, idx(x.shape[1])][:, :, idx(x.shape[2])]
+def reflect_pad_axis(x, dim: int, pad: int):
+    """ReflectionPad by ``pad`` along one axis of ``x`` (an index gather)."""
+    return x[(slice(None),) * dim + (_reflect_index(x.shape[dim], pad, x.device),)]
 
 
 def activation(name):
@@ -466,6 +464,78 @@ def space_to_depth(x, block: int = 2):
 def upsample2x_nearest(x):
     """torch nn.Upsample(scale_factor=2) (nearest) on NHWC."""
     return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+
+# The up stage's phase decomposition (JAX layers.py:1017-1025): output row 2i + a reads
+# upsampled rows 2i + a - 2 .. 2i + a + 2, which hold source rows i - 1, i, i + 1, so the
+# 5 kernel rows collapse onto 3 source rows per phase a: (K0+K1, K2+K3, K4) for a = 0,
+# (K0, K1+K2, K3+K4) for a = 1, i.e. the even plus the odd taps of the kernel with a
+# zero tap appended (a = 0) or prepended (a = 1).
+def _collapse(w, dim: int):
+    z = torch.zeros_like(w.narrow(dim, 0, 1))
+    phases = []
+    for padded in (torch.cat([w, z], dim), torch.cat([z, w], dim)):
+        t = padded.movedim(dim, 0)
+        phases.append((t[0::2] + t[1::2]).movedim(0, dim))
+    return torch.cat(phases, dim)
+
+
+def upconv_phase_kernel(w_hwio):
+    """The up stage's 5x5 HWIO kernel collapsed into its four phase kernels, packed
+    (3, 3, C, 4 O) with the groups ordered (a, b, o), as the JAX package's einsum
+    ``ak,bl,klio->abio`` (layers.py:1056-1062): rows first, then columns, each a sum
+    of at most two taps (exact in any order), so the sums are its bits on any device."""
+    c, o = w_hwio.shape[2], w_hwio.shape[3]
+    k6 = _collapse(_collapse(w_hwio, 0), 1)  # (a r, b s, C, O)
+    return k6.reshape(2, 3, 2, 3, c, o).permute(1, 3, 4, 0, 2, 5).reshape(3, 3, c, 4 * o)
+
+
+_STRIP_ROWS = {}  # (source size, device) -> the strips' source rows, made once a shape
+
+
+def _strip_rows(n: int, device):
+    """Source rows (or columns) of the 6 reflect-padded upsampled rows that output rows
+    0..1 and the last two read: [x1, x0, x0, x0, x1, x1] and its mirror at the far end
+    (JAX layers.py:1084-1086). Cached, so a forward copies no index to the card."""
+    key = (n, str(device))
+    if key not in _STRIP_ROWS:
+        _STRIP_ROWS[key] = torch.tensor([[1, 0, 0, 0, 1, 1],
+                                         [n - 2, n - 2, n - 1, n - 1, n - 1, n - 2]],
+                                        device=device)
+    return _STRIP_ROWS[key]
+
+
+def _float_conv_valid(x, kernel_oihw):
+    return F.conv2d(x.permute(0, 3, 1, 2), kernel_oihw).permute(0, 2, 3, 1)
+
+
+def upconv2x_nearest_reflect(x, weight, bias):
+    """An ICN up stage's conv on its source ``x`` (N, h, w, C): nearest-2x upsample ->
+    reflect-pad(2) -> 5x5 conv (OIHW ``weight``) + ``bias``. With the tier off, or
+    where :func:`upconv5_int8_eligible` says float, the plain composition. On the int8
+    tier, JAX ``upconv2x_nearest_reflect`` (layers.py:1029-1095): the phase kernels
+    (:func:`upconv_phase_kernel`, float32, then x's dtype) as one int8 3x3 conv to
+    4 O channels on the source reflect-padded by 1, depth-to-space in (a, b, o) order,
+    and the 2-pixel output borders recomputed by the float conv from the 6-row and
+    6-column strips of the padded upsampled field they read (the collapse assumes
+    neighbours the first and last source rows do not have)."""
+    o = weight.shape[0]
+    if not upconv5_int8_eligible(x, o):
+        with suppress_quantization():
+            return conv_nhwc(reflect_pad(upsample2x_nearest(x), 2), weight, bias)
+    n, h, w, _ = x.shape
+    kp = upconv_phase_kernel(weight.float().permute(2, 3, 1, 0)).to(x.dtype)
+    y = depth_to_space(conv_nhwc_int8(reflect_pad(x, 1), kp.permute(3, 2, 0, 1), None), 2)
+    kc = weight.to(x.dtype)
+    # Both row strips in one float conv (batched), then both column strips: (2N, 2, 2w,
+    # O) and (2N, 2h, 2, O). Column strips span the full height, so the corners are theirs.
+    rows = torch.cat([x.index_select(1, i) for i in _strip_rows(h, x.device)])
+    rows = _float_conv_valid(reflect_pad_axis(rows.repeat_interleave(2, dim=2), 2, 2), kc)
+    cols = torch.cat([x.index_select(2, i) for i in _strip_rows(w, x.device)])
+    cols = _float_conv_valid(reflect_pad_axis(cols.repeat_interleave(2, dim=1), 1, 2), kc)
+    y[:, :2], y[:, -2:] = rows[:n], rows[n:]
+    y[:, :, :2], y[:, :, -2:] = cols[:n], cols[n:]
+    return y if bias is None else y + bias.to(y.dtype)
 
 
 def max_pool2(x):

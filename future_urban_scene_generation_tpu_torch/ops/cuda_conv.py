@@ -21,19 +21,27 @@ an older TPU layout of the same function). The CUDA kernel lives in
 ``csrc/conv_small_cin.cu``; ``models.layers`` dispatches gated convs to
 :func:`conv_small_cin_v2`.
 
-Kernel N2, :func:`conv_int8`, is the int8 serving tier's convolution on int8 codes
-(``csrc/conv_int8.cu``: an implicit GEMM on ``mma.sync`` s8 tensor cores, exact
-int32 accumulation, ``float32(acc) * sw[o]`` in the epilogue), for the plain conv and,
-with an input dilation, the transposed conv. It ports no TPU kernel: the JAX package
-runs an int8 XLA convolution (models/layers.py:206, :233). ``models.layers`` quantizes
-and dispatches to it (``quantized_convs``); :func:`conv_int8_plain` is the same
-function in float64, exact for these sums, so kernel and plain version agree bit for
-bit.
+The int8 serving tier runs on two kernels that port no TPU kernel (the JAX package
+runs an int8 XLA convolution, models/layers.py:206, :233, with its quantization ops
+fused around it); ``models.layers`` dispatches to :func:`conv_int8_quantized`, N3 then
+N2 (``quantized_convs``):
+
+* N3, :func:`quantize_int8_packed` (``csrc/quant_int8.cu``): the per-channel scales
+  and the codes of the activation and of the weight in two launches, the weight codes
+  written as N2's shared-memory image (:func:`pack_int8_image`); its plain version is
+  :func:`quantize_int8_plain` + packing.
+* N2, on the codes (``csrc/conv_int8.cu``): an implicit GEMM on ``wgmma`` s8 tensor
+  cores, exact int32 accumulation, ``float32(acc) * sw[o]`` in the epilogue, for the
+  plain conv and, as s^2 phase convs that skip the holes, the transposed conv.
+  :func:`int8_plan` mirrors its plan; :func:`conv_int8_plain` is its function in
+  float64, exact for these sums, so kernel and plain version agree bit for bit, and
+  :func:`conv_int8_image_plain` repeats its decomposition. :func:`conv_int8` takes HWIO
+  codes (packed in torch on the card): the entry the checks use.
 
 Every wrapper takes its plain version for a CPU tensor; a CUDA tensor launches the
 kernel, or raises if the kernel cannot take the shapes. Each wrapper counts its
 launches: ``LAUNCHES`` (K2), ``SMALL_CIN_V2_LAUNCHES`` (K3), ``SMALL_CIN_LAUNCHES``
-(K4) and ``INT8_LAUNCHES`` (N2).
+(K4), ``INT8_LAUNCHES`` (N2) and ``QUANT_LAUNCHES`` (N3).
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ LAUNCHES = 0
 SMALL_CIN_V2_LAUNCHES = 0
 SMALL_CIN_LAUNCHES = 0
 INT8_LAUNCHES = 0
+QUANT_LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 _TILE = 16
@@ -318,6 +327,106 @@ def conv_small_cin(x, kernel) -> torch.Tensor:
 
 # The largest K = kh * kw * C whose int32 sums of code products stay exact (127^2 K < 2^31).
 _INT8_MAX_K = (2**31 - 1) // (127 * 127)
+_INT8_BK = 128  # codes a K-block: one swizzled 128-byte row (csrc/int8_plan.cuh kBK)
+_INT8_BM, _INT8_STAGES, _INT8_ALIGN = 128, 4, 1024
+_INT8_MAX_PHASES = 16
+
+
+class Int8Plan(NamedTuple):
+    """How N2 runs a conv and how N3 lays out its weight operand (``csrc/int8_plan.cuh``
+    ``int8_plan``, checked against it on the card by ``fusg_int8_plan``)."""
+
+    bn: int  # output channels a tile: 64, 128 above 64 outputs, 256 above 128
+    bk: int  # codes a K-block (128)
+    stages: int  # K-blocks in the shared-memory ring
+    smem: int  # bytes of dynamic shared memory N2 asks for
+    phases: int  # s * s for a transposed conv of stride s, else 1
+    taps: int  # taps an axis the kernel walks: k, or ceil(k / s) a phase
+    cp: int  # channels padded to a multiple of 16
+    k_img: int  # taps^2 * cp rounded up to bk
+    o_tiles: int  # output-channel tiles
+
+
+def int8_plan(c: int, k: int, cout: int, in_dilation: int = 1) -> Int8Plan:
+    """N2's one route (wgmma, 128-pixel tiles) and its sizes for a conv of C input and
+    ``cout`` output channels with a k x k kernel; ``in_dilation`` s > 1: the transposed
+    conv, run as s^2 phase convs of ceil(k / s)^2 taps each."""
+    bn = 256 if cout > 128 else 128 if cout > 64 else 64
+    taps = -(-k // in_dilation)
+    cp = _round_up(c, 16)
+    smem = _INT8_STAGES * (_INT8_BM + bn) * _INT8_BK + _INT8_ALIGN + 2 * _INT8_STAGES * 8
+    return Int8Plan(bn, _INT8_BK, _INT8_STAGES, smem, in_dilation ** 2, taps, cp,
+                    _round_up(taps * taps * cp, _INT8_BK), -(-cout // bn))
+
+
+def phase_tap0(lo: int, q: int, s: int) -> int:
+    """The first tap of output phase q of a stride-s transposed conv (flipped kernel,
+    low padding lo): its taps are ky = phase_tap0 + s t."""
+    return (lo - q) % s
+
+
+def phase_pad(lo: int, q: int, s: int) -> int:
+    """Phase q's low padding on the undilated input: its output row a reads input rows
+    a + t - phase_pad."""
+    return -((q + phase_tap0(lo, q, s) - lo) // s)
+
+
+def _swizzle(bn: int) -> torch.Tensor:
+    """Byte offsets of (row r, code k) in one (bn, 128) tile of the 128-byte swizzle:
+    8-row atoms of 1,024 bytes, chunk k // 16 of row r at chunk (k // 16) ^ (r % 8)."""
+    r = torch.arange(bn)[:, None]
+    k = torch.arange(_INT8_BK)[None, :]
+    return (r // 8) * 1024 + (r % 8) * 128 + (((k // 16) ^ (r % 8)) * 16) + k % 16
+
+
+def _phase_matrices(wq, plan: Int8Plan, in_dilation: int, pad_lo: int) -> torch.Tensor:
+    """HWIO codes (k, k, C, O) -> (phases, O, k_img): row o of phase q is the phase's
+    taps ordered (ty, tx, c), C padded to cp, K padded to k_img, by zero codes."""
+    k, _, c, o = wq.shape
+    taps, cp, s = plan.taps, plan.cp, in_dilation
+    wpad = F.pad(wq, (0, 0, 0, cp - c))
+    mats = []
+    for q in range(plan.phases):
+        if s == 1:
+            sub = wpad
+        else:
+            ky = [phase_tap0(pad_lo, q // s, s) + s * t for t in range(taps)]
+            kx = [phase_tap0(pad_lo, q % s, s) + s * t for t in range(taps)]
+            sub = wpad.new_zeros((taps, taps, cp, o))
+            for ty, yy in enumerate(ky):
+                for tx, xx in enumerate(kx):
+                    if yy < k and xx < k:
+                        sub[ty, tx] = wpad[yy, xx]
+        mats.append(F.pad(sub.permute(3, 0, 1, 2).reshape(o, -1),
+                          (0, plan.k_img - taps * taps * cp)))
+    return torch.stack(mats)
+
+
+def pack_int8_image(wq, in_dilation: int = 1, pad_lo: int = 0) -> torch.Tensor:
+    """N2's weight operand as N3 writes it: HWIO codes (k, k, C, O) (a transposed
+    conv's flipped kernel, ``in_dilation`` its stride, ``pad_lo`` k - 1 - p) -> the
+    flat int8 image of every (phase, output tile, K-block) (bn, 128) tile in the
+    128-byte swizzle, rows past O zero (``csrc/int8_plan.cuh``)."""
+    k, _, c, o = wq.shape
+    plan = int8_plan(c, k, o, in_dilation)
+    n_kb = plan.k_img // _INT8_BK
+    mats = F.pad(_phase_matrices(wq, plan, in_dilation, pad_lo),
+                 (0, 0, 0, plan.o_tiles * plan.bn - o))
+    tiles = mats.reshape(plan.phases, plan.o_tiles, plan.bn, n_kb, _INT8_BK)
+    tiles = tiles.permute(0, 1, 3, 2, 4).reshape(plan.phases, plan.o_tiles, n_kb, -1)
+    img = torch.zeros_like(tiles)
+    img[..., _swizzle(plan.bn).reshape(-1).to(tiles.device)] = tiles
+    return img.reshape(-1)
+
+
+def unpack_int8_image(img, plan: Int8Plan, cout: int) -> torch.Tensor:
+    """The inverse of :func:`pack_int8_image`: -> (phases, O, k_img) code matrices."""
+    n_kb = plan.k_img // _INT8_BK
+    tiles = img.reshape(plan.phases, plan.o_tiles, n_kb, -1)
+    tiles = tiles[..., _swizzle(plan.bn).reshape(-1).to(img.device)]
+    mats = tiles.reshape(plan.phases, plan.o_tiles, n_kb, plan.bn, _INT8_BK)
+    return mats.permute(0, 1, 3, 2, 4).reshape(plan.phases, plan.o_tiles * plan.bn,
+                                               plan.k_img)[:, :cout]
 
 
 def int8_out_hw(h: int, w: int, k: int, stride: int, pad_lo: int, pad_hi: int,
@@ -349,10 +458,45 @@ def conv_int8_plain(xq, wq, sw, out_dtype, *, stride: int = 1, pad_lo: int = 0,
     return (acc.permute(0, 2, 3, 1).to(torch.float32) * sw).to(out_dtype)
 
 
+def conv_int8_image_plain(xq, img, sw, out_dtype, k: int, *, stride: int = 1,
+                          pad_lo: int = 0, pad_hi: int = 0, dilation: int = 1,
+                          in_dilation: int = 1) -> torch.Tensor:
+    """N2's function by the kernel's own decomposition, from its operands: codes xq
+    (N, H, W, C or Cp), the weight image of :func:`pack_int8_image` (k x k taps) and
+    sw. A transposed conv (``in_dilation`` s) is s^2 stride-1 convs of the undilated
+    input, phase (qy, qx) with its sub-kernel's taps and low padding
+    :func:`phase_pad` (negative: a crop), written at output pixels (qy + s a, qx + s b).
+    Exact as :func:`conv_int8_plain`."""
+    o = sw.shape[0]
+    n, h, w, c = xq.shape
+    plan = int8_plan(c, k, o, in_dilation)
+    taps, cp = plan.taps, plan.cp
+    mats = unpack_int8_image(img, plan, o)[:, :, :taps * taps * cp]
+    xq = F.pad(xq, (0, cp - c))
+    subs = mats.reshape(plan.phases, o, taps, taps, cp).permute(0, 2, 3, 4, 1)
+    if in_dilation == 1:
+        return conv_int8_plain(xq, subs[0], sw, out_dtype, stride=stride, pad_lo=pad_lo,
+                               pad_hi=pad_hi, dilation=dilation)
+    s = in_dilation
+    ho, wo = int8_out_hw(h, w, k, 1, pad_lo, pad_hi, 1, s)
+    out = torch.empty((n, ho, wo, o), dtype=out_dtype, device=xq.device)
+    x = xq.to(torch.float64).permute(0, 3, 1, 2)
+    for q in range(plan.phases):
+        qy, qx = divmod(q, s)
+        hq, wq = -(-(ho - qy) // s), -(-(wo - qx) // s)
+        if hq <= 0 or wq <= 0:
+            continue
+        py, px = phase_pad(pad_lo, qy, s), phase_pad(pad_lo, qx, s)
+        xp = F.pad(x, (px, wq + taps - 1 - px - w, py, hq + taps - 1 - py - h))
+        acc = F.conv2d(xp, subs[q].to(torch.float64).permute(3, 2, 0, 1))
+        out[:, qy::s, qx::s] = (acc.permute(0, 2, 3, 1).to(torch.float32) * sw).to(out_dtype)
+    return out
+
+
 def pack_int8_weights(wq):
-    """The kernel's weight operand: HWIO codes (k, k, C, O) -> (O, Kp) int8, k ordered
-    (ky, kx, c) with C padded to a multiple of 16 and K to one of 32 by zero codes.
-    Returns (packed, padded C, Kp)."""
+    """The first N2's weight operand, kept as the reference layout of a conv's codes:
+    HWIO codes (k, k, C, O) -> (O, Kp) int8, k ordered (ky, kx, c) with C padded to a
+    multiple of 16 and K to one of 32 by zero codes. Returns (packed, padded C, Kp)."""
     kh, kw, c, o = wq.shape
     cp = _round_up(c, 16)
     if cp != c:
@@ -362,62 +506,165 @@ def pack_int8_weights(wq):
     return F.pad(wq.permute(3, 0, 1, 2).reshape(o, k), (0, kp - k)).contiguous(), cp, kp
 
 
-def _check_int8(xq, wq, sw, out_dtype, stride, pad_lo, pad_hi, dilation, in_dilation):
-    if xq.dtype != torch.int8 or wq.dtype != torch.int8 or sw.dtype != torch.float32:
-        raise TypeError("conv_int8: codes must be int8 and the scales float32")
+def quantize_int8_plain(x, w_hwio):
+    """Plain version of N3's quantization: the JAX ``_int8_conv``'s (layers.py:195-205),
+    op for op: a per-input-channel activation scale sx = max(max|x| over N, H, W,
+    1e-12) / 127, folded into the weight (w_eff = w * sx), a per-output-channel weight
+    scale sw from w_eff the same way, and codes round(x / sx), round(w_eff / sw) (half
+    to even, divisions, not reciprocals) clamped to +-127. ``w_hwio`` is already in x's
+    dtype; both go to float32 first. Returns (x codes, w codes, sw)."""
+    sx = torch.clamp(x.abs().amax(dim=(0, 1, 2)).to(torch.float32), min=1e-12) * (1.0 / 127.0)
+    w_eff = w_hwio.to(torch.float32) * sx[None, None, :, None]
+    sw = torch.clamp(w_eff.abs().amax(dim=(0, 1, 2)), min=1e-12) * (1.0 / 127.0)
+    xq = torch.clamp(torch.round(x.to(torch.float32) / sx), -127, 127).to(torch.int8)
+    wq = torch.clamp(torch.round(w_eff / sw), -127, 127).to(torch.int8)
+    return xq, wq, sw
+
+
+def quantize_int8_packed_plain(x, w_hwio, *, in_dilation: int = 1, pad_lo: int = 0):
+    """Plain version of N3: :func:`quantize_int8_plain`, the x codes' channels padded
+    to a multiple of 16, the weight codes as :func:`pack_int8_image`. Returns (x codes
+    (N, H, W, Cp), weight image, sw)."""
+    xq, wq, sw = quantize_int8_plain(x, w_hwio)
+    cp = _round_up(xq.shape[-1], 16)
+    return F.pad(xq, (0, cp - xq.shape[-1])), pack_int8_image(wq, in_dilation, pad_lo), sw
+
+
+def _check_int8(x, w, sw, out_dtype, stride, pad_lo, pad_hi, dilation, in_dilation):
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"conv_int8: unsupported output dtype {out_dtype}")
-    if wq.device != xq.device or sw.device != xq.device:
-        raise TypeError("conv_int8: codes and scales must be on one device")
-    if xq.dim() != 4 or wq.dim() != 4 or wq.shape[0] != wq.shape[1]:
+    if w.device != x.device or (sw is not None and sw.device != x.device):
+        raise TypeError("conv_int8: operands must be on one device")
+    if x.dim() != 4 or w.dim() != 4 or w.shape[0] != w.shape[1]:
         raise ValueError("conv_int8: x must be (N, H, W, C), w (k, k, C, O)")
-    if wq.shape[2] != xq.shape[-1] or tuple(sw.shape) != (wq.shape[3],):
-        raise ValueError(f"conv_int8: w {tuple(wq.shape)} / sw {tuple(sw.shape)} do not fit "
-                         f"x {tuple(xq.shape)}")
+    if w.shape[2] != x.shape[-1] or (sw is not None and tuple(sw.shape) != (w.shape[3],)):
+        raise ValueError(f"conv_int8: w {tuple(w.shape)} does not fit x {tuple(x.shape)}")
     if in_dilation > 1 and (stride != 1 or dilation != 1):
         raise ValueError("conv_int8: an input dilation takes stride 1 and no kernel dilation")
+    if in_dilation ** 2 > _INT8_MAX_PHASES:
+        raise ValueError(f"conv_int8: a transposed conv of stride {in_dilation} has too many "
+                         "phases")
     if pad_lo < 0 or min(stride, dilation, in_dilation) < 1:
         raise ValueError("conv_int8: negative padding or a step below 1")
-    k = wq.shape[0]
-    if k * k * _round_up(xq.shape[-1], 16) > _INT8_MAX_K:
+    k = w.shape[0]
+    if k * k * _round_up(x.shape[-1], 16) > _INT8_MAX_K:
         raise ValueError("conv_int8: K too large for an exact int32 accumulator")
-    ho, wo = int8_out_hw(xq.shape[1], xq.shape[2], k, stride, pad_lo, pad_hi, dilation,
+    ho, wo = int8_out_hw(x.shape[1], x.shape[2], k, stride, pad_lo, pad_hi, dilation,
                          in_dilation)
     if ho < 1 or wo < 1:
         raise ValueError("conv_int8: empty output")
     return ho, wo
 
 
-def conv_int8(xq, wq, sw, out_dtype, *, stride: int = 1, pad_lo: int = 0, pad_hi: int = 0,
-              dilation: int = 1, in_dilation: int = 1) -> torch.Tensor:
-    """N2: see :func:`conv_int8_plain` for the function. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (``fusg_conv_int8``, or with an input
-    dilation ``fusg_conv_transpose_int8``) or raise."""
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _launch_conv_int8(xq, img, sw, out_dtype, c, k, ho, wo, stride, pad_lo, dilation,
+                      in_dilation) -> torch.Tensor:
+    """N2 on its operands: codes (N, H, W, Cp), N3's weight image, sw."""
     global INT8_LAUNCHES
-    if xq.device.type == "cpu":
-        return conv_int8_plain(xq, wq, sw, out_dtype, stride=stride, pad_lo=pad_lo,
-                               pad_hi=pad_hi, dilation=dilation, in_dilation=in_dilation)
-    if xq.device.type != "cuda":
-        raise ValueError(f"conv_int8: unsupported device {xq.device}")
-    ho, wo = _check_int8(xq, wq, sw, out_dtype, stride, pad_lo, pad_hi, dilation,
-                         in_dilation)
-    n, h, w, c = xq.shape
-    k, o = wq.shape[0], wq.shape[3]
-    wpk, cp, kp = pack_int8_weights(wq)
-    xq = (F.pad(xq, (0, cp - c)) if cp != c else xq).contiguous()
-    sw = sw.contiguous()
+    n, h, w, _ = xq.shape
+    o = sw.shape[0]
     out = torch.empty((n, ho, wo, o), dtype=out_dtype, device=xq.device)
     lib = _kernels.load()
-    args = (ctypes.c_void_p(xq.data_ptr()), ctypes.c_void_p(wpk.data_ptr()),
+    args = (ctypes.c_void_p(xq.data_ptr()), ctypes.c_void_p(img.data_ptr()),
             ctypes.c_void_p(sw.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            0 if out_dtype == torch.float32 else 1, n, h, w, cp, k, k, o, ho, wo)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(xq.device).cuda_stream)
+            0 if out_dtype == torch.float32 else 1, n, h, w, c, k, o, ho, wo)
     if in_dilation == 1:
-        rc = lib.fusg_conv_int8(*args, stride, pad_lo, pad_lo, dilation, kp, stream)
+        rc = lib.fusg_conv_int8(*args, stride, pad_lo, pad_lo, dilation, _stream(xq))
     else:
-        rc = lib.fusg_conv_transpose_int8(*args, in_dilation, pad_lo, pad_lo, kp, stream)
+        rc = lib.fusg_conv_transpose_int8(*args, in_dilation, pad_lo, pad_lo, _stream(xq))
     if rc != 0:
         raise RuntimeError(f"fusg_conv_int8 launch failed: CUDA error {rc}")
     with _COUNT_LOCK:  # scenes of several streams launch from worker threads
         INT8_LAUNCHES += 1
     return out
+
+
+def conv_int8(xq, wq, sw, out_dtype, *, stride: int = 1, pad_lo: int = 0, pad_hi: int = 0,
+              dilation: int = 1, in_dilation: int = 1) -> torch.Tensor:
+    """N2 on HWIO codes: see :func:`conv_int8_plain` for the function. CPU tensors take
+    the plain version; CUDA tensors are packed as N3 packs them (the channel pad, and
+    :func:`pack_int8_image` in torch) and launch the kernel (``fusg_conv_int8``, or with
+    an input dilation ``fusg_conv_transpose_int8``: the phase convs) or raise."""
+    geom = dict(stride=stride, pad_lo=pad_lo, pad_hi=pad_hi, dilation=dilation,
+                in_dilation=in_dilation)
+    if xq.device.type == "cpu":
+        return conv_int8_plain(xq, wq, sw, out_dtype, **geom)
+    if xq.device.type != "cuda":
+        raise ValueError(f"conv_int8: unsupported device {xq.device}")
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8 or sw.dtype != torch.float32:
+        raise TypeError("conv_int8: codes must be int8 and the scales float32")
+    ho, wo = _check_int8(xq, wq, sw, out_dtype, **geom)
+    c, k = xq.shape[-1], wq.shape[0]
+    xq = F.pad(xq, (0, _round_up(c, 16) - c)).contiguous()
+    img = pack_int8_image(wq, in_dilation, pad_lo)
+    return _launch_conv_int8(xq, img, sw.contiguous(), out_dtype, c, k, ho, wo, stride,
+                             pad_lo, dilation, in_dilation)
+
+
+def quantize_int8_packed(x, w_hwio, *, flip: bool = False, in_dilation: int = 1,
+                         pad_lo: int = 0):
+    """N3: the tier's quantization of one conv (``csrc/quant_int8.cu``), two launches.
+    ``x`` (N, H, W, C) float32 or bfloat16, ``w_hwio`` (k, k, C, O) in x's dtype (any
+    strides: a view of the layer's weight, not copied), ``flip``: the kernel is
+    ``w_hwio`` flipped on both tap axes (a transposed conv's, read through negative
+    strides). Returns what :func:`quantize_int8_packed_plain` returns, which CPU
+    tensors take; CUDA tensors launch the kernel or raise."""
+    global QUANT_LAUNCHES
+    if x.device.type == "cpu":
+        return quantize_int8_packed_plain(x, w_hwio.flip(0, 1) if flip else w_hwio,
+                                          in_dilation=in_dilation, pad_lo=pad_lo)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_int8_packed: unsupported device {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or w_hwio.dtype != x.dtype:
+        raise TypeError("quantize_int8_packed: x float32 or bfloat16, the weight in x's dtype")
+    if w_hwio.device != x.device or x.dim() != 4 or w_hwio.dim() != 4 or \
+            w_hwio.shape[0] != w_hwio.shape[1] or w_hwio.shape[2] != x.shape[-1]:
+        raise ValueError(f"quantize_int8_packed: w {tuple(w_hwio.shape)} does not fit x "
+                         f"{tuple(x.shape)} on {x.device}")
+    x = x.contiguous()
+    n, h, w, c = x.shape
+    k, o = w_hwio.shape[0], w_hwio.shape[3]
+    plan = int8_plan(c, k, o, in_dilation)
+    s_ky, s_kx, s_c, s_o = w_hwio.stride()
+    ptr = w_hwio.data_ptr()
+    if flip:
+        ptr += (k - 1) * (s_ky + s_kx) * w_hwio.element_size()
+        s_ky, s_kx = -s_ky, -s_kx
+    amax = torch.empty(c, dtype=torch.int32, device=x.device)
+    xq = torch.empty((n, h, w, plan.cp), dtype=torch.int8, device=x.device)
+    img = torch.empty(plan.phases * plan.o_tiles * plan.k_img * plan.bn, dtype=torch.int8,
+                      device=x.device)
+    sw = torch.empty(o, dtype=torch.float32, device=x.device)
+    rc = _kernels.load().fusg_quant_int8(
+        ctypes.c_void_p(x.data_ptr()), 0 if x.dtype == torch.float32 else 1, n, h, w, c,
+        ctypes.c_void_p(ptr), s_ky, s_kx, s_c, s_o, k, o, in_dilation, pad_lo,
+        ctypes.c_void_p(amax.data_ptr()), ctypes.c_void_p(xq.data_ptr()),
+        ctypes.c_void_p(img.data_ptr()), ctypes.c_void_p(sw.data_ptr()), _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"fusg_quant_int8 launch failed: CUDA error {rc}")
+    with _COUNT_LOCK:
+        QUANT_LAUNCHES += 1
+    return xq, img, sw
+
+
+def conv_int8_quantized(x, w_hwio, out_dtype, *, flip: bool = False, stride: int = 1,
+                        pad_lo: int = 0, pad_hi: int = 0, dilation: int = 1,
+                        in_dilation: int = 1) -> torch.Tensor:
+    """One conv on the int8 tier: x (N, H, W, C) and the HWIO weight in x's dtype
+    (``flip``: flipped on its tap axes, a transposed conv's kernel) -> (N, Ho, Wo, O)
+    in ``out_dtype``. CPU tensors take the torch composition
+    (:func:`quantize_int8_plain`, then :func:`conv_int8`'s plain version); CUDA
+    tensors launch N3 then N2, or raise."""
+    geom = dict(stride=stride, pad_lo=pad_lo, pad_hi=pad_hi, dilation=dilation,
+                in_dilation=in_dilation)
+    if x.device.type == "cpu":
+        xq, wq, sw = quantize_int8_plain(x, w_hwio.flip(0, 1) if flip else w_hwio)
+        return conv_int8(xq, wq, sw, out_dtype, **geom)
+    ho, wo = _check_int8(x, w_hwio, None, out_dtype, **geom)
+    xq, img, sw = quantize_int8_packed(x, w_hwio, flip=flip, in_dilation=in_dilation,
+                                       pad_lo=pad_lo)
+    return _launch_conv_int8(xq, img, sw, out_dtype, x.shape[-1], w_hwio.shape[0], ho, wo,
+                             stride, pad_lo, dilation, in_dilation)
