@@ -13,8 +13,12 @@ step on the card against the CPU, the train-mode batch norm's backward). The inp
 and maskrcnn phases drive the inpaint branch: ``cli.run_test --inpaint`` with the
 background-difference segmenter and with ``--segmenter maskrcnn``, from seeded
 full-width EdgeConnect and Mask R-CNN files in the reference's layouts (written, and
-read back, with PyYAML blocked), with kernel N1 (Mask R-CNN's NMS) against its plain
-version and ``TrackingStreamRunner`` with ``MaskRCNNDetector``. The train_ec phase
+read back, with PyYAML blocked), two N1 calls a frame, and ``TrackingStreamRunner``
+with ``MaskRCNNDetector``. The n1 phase holds kernel N1 (Mask R-CNN's NMS: every
+segment of a call in one launch, one cluster a segment) against its plain version at
+the RPN's five-segment call, presorted input with -1 scores, 1 to 4,096 boxes (the
+global-scratch route above 1,024), all scores invalid and fewer outputs than kept
+boxes, and checks one device kernel a call. The train_ec phase
 trains EdgeConnect's edge and inpainting models at full width through ``cli.train``
 (batch 4, 256^2, a resume, ``--vgg-weights``), times them, holds one step on the card
 against the CPU, and serves the runs back through ``cli/export_zoo`` and the zoo
@@ -23,16 +27,19 @@ tier (``ModelSpec.quantized_convs``): kernel N2 (wgmma, transposed convs as phas
 convs) against its plain version bit for bit at every conv shape the quantized bench
 scene and the quantized erase run (plus every instantiation of its plan and an
 all-+127 case), kernel N3 (the quantization) against the torch composition on the
-card and the CPU, N2's times beside ``torch._int_mm`` and cuDNN's bf16 conv as
-yardsticks, N3's beside the torch composition, the device-time split of one quantized
-ICN forward (N2, N3, the rest), the JAX package's quality bars at full width, then
+card and the CPU, one device kernel an N3 call (profiler), N2's times beside
+``torch._int_mm`` and cuDNN's bf16 conv as yardsticks, N3's beside the torch
+composition and a copy of its input, the device-time split of one quantized ICN
+forward (N2, N3, the rest), the JAX package's quality bars at full width, then
 ``run_scene`` on the bench scene with the tier on.
 
     python3 chip_smoke.py                    # every phase, one GPU
     python3 chip_smoke.py --phases k3,train  # a subset (device and build always run)
     python3 chip_smoke.py --phases int8      # the int8 tier, kernels N2 and N3, alone
-    python3 chip_smoke.py --icn-split DIR    # only the quantized ICN forward's split, of
-                                             # the port under DIR (an earlier commit)
+    python3 chip_smoke.py --split DIR        # only where the device time goes for the port
+                                             # under DIR (an earlier commit, or .): one N1
+                                             # and one N3 call, N3 over a quantized scene,
+                                             # the quantized ICN forward
     python3 chip_smoke.py --profile          # also profile one scene and one EdgeConnect step each
 
 The k1 phase holds K1 and K1' (two CUDA launches a call: triangle setup, tiles) at
@@ -43,9 +50,9 @@ profiled call must show those two kernels on the device and nothing else.
 Kernel launches in the ``kernels`` line, each counted over its own path with the
 counters set to 0 just before: K1 and K2 from the main phase's scenes, N2 and N3 from
 the int8 phase's quantized scenes, K3 from the train phase's CLI run, K1' from the
-demo, N1 from the maskrcnn phase's CLI request (N1, N2 and N3 port no TPU kernel: the
-JAX package's NMS is a ``lax.scan``, its int8 conv an XLA convolution with XLA's
-quantization ops around it); K4's entry has no caller on any path.
+demo, N1 from the maskrcnn phase's CLI request (its record from the n1 phase) (N1, N2
+and N3 port no TPU kernel: the JAX package's NMS is a ``lax.scan``, its int8 conv an XLA
+convolution with XLA's quantization ops around it); K4's entry has no caller on any path.
 ``bound_ms`` is the larger of bytes over 3.35 TB/s and operations over the card's
 peak for the kernel's type (the H100 SXM's published 67 TFLOP/s float32, 989 TFLOP/s
 bf16, 1,979 TOP/s int8), from this run's inputs (the raster's operations are counted from the bboxes of
@@ -72,7 +79,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-ALL_PHASES = ("k1", "k2", "k3", "gpu_vs_cpu", "main", "int8", "train", "demo", "serve",
+ALL_PHASES = ("k1", "k2", "k3", "gpu_vs_cpu", "main", "int8", "train", "demo", "n1", "serve",
               "stream", "multi", "warmup", "web", "inpaint", "maskrcnn", "train_ec")
 # Published peaks of one H100 SXM: device memory bytes/s, float32 FLOP/s outside the
 # tensor cores, dense bf16 FLOP/s.
@@ -149,8 +156,8 @@ def phase_build():
     for line in _kernels.BUILD_LOG.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            for tag in ("conv_int8_wgmma_kernel", "amax_kernel", "codes_kernel"):
-                if tag in name:  # N2 <N, output type>, N3's two kernels <input type[, V]>
+            for tag in ("conv_int8_wgmma_kernel", "quant_int8_kernel"):
+                if tag in name:  # N2 <N, output type>, N3 <input type, V>
                     ints = re.findall(r"Li(\d+)E", name)
                     kind = "bf16" if "bfloat16" in name else "f32"
                     name = f"{tag}<{','.join(ints[:1] + [kind] + ints[1:])}>"
@@ -1652,10 +1659,87 @@ def _int8_times(key, device, card, report):
                 n3_ms=n3_ms, n3_plain_ms=n3_plain_ms, n3_bound=n3_bound, n3_by=n3_by)
 
 
+def _n3_one_launch(key, device, calls=5):
+    """Profiled calls of N3 at ``key``: raises unless the device ran ``quant_int8_kernel``
+    at most once a call and nothing else (no memset, no copy; the tracer may drop a
+    kernel's record, so fewer than ``calls`` records pass, none does not). Returns its
+    device ms a call, over the records traced."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from future_urban_scene_generation_tpu_torch.ops import cuda_conv
+
+    x, w = _n3_inputs(key, device, torch.Generator().manual_seed(8))
+    x, w = x.to(device), w.to(device)
+    g = dict(key[3])
+    kw = dict(flip=bool(g.get("flip")), in_dilation=g.get("in_dilation", 1),
+              pad_lo=g.get("pad_lo", 0))
+    cuda_conv.quantize_int8_packed(x, w, **kw)
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            cuda_conv.quantize_int8_packed(x, w, **kw)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ours = [e for e in rows if "quant_int8_kernel" in e.name]
+    others = sorted({e.name for e in rows if "quant_int8_kernel" not in e.name})
+    log(f"int8: N3 at {key[0]} * {key[1]}: {calls} profiled calls ran {len(ours)} device "
+        f"kernel records of quant_int8_kernel and {others or 'nothing else'} (no memset, no "
+        f"copy)")
+    if not 0 < len(ours) <= calls or others:
+        raise AssertionError(f"int8: an N3 call must be one device kernel: {len(ours)} in "
+                             f"{calls} calls, others {others}")
+    return sum(e.time_range.elapsed_us() for e in ours) / 1e3 / len(ours)
+
+
+N3_TRUNK = ((24, 66, 66, 256), (3, 3, 256, 256), torch.bfloat16, ())  # the ICN trunk's conv
+
+
+def launch_checks(device="cuda"):
+    """One device kernel a call, and its device time: N1 on 1,000 presorted boxes and on
+    the RPN's five segments (nothing but ``nms_kernel`` on the device), N3 at the ICN
+    trunk's activation (``_n3_one_launch``), each under the profiler. Run in a fresh
+    process: late in a long run the profiler drops kernel records."""
+    from future_urban_scene_generation_tpu_torch.ops import detection
+
+    gen = torch.Generator().manual_seed(3)
+    out = {}
+    b = torch.cat([_n1_boxes(k, gen, 1024.0) for k in N1_RPN_SEGMENTS]).to(device)
+    sc = torch.cat([_n1_rpn_scores(k, gen, device) for k in N1_RPN_SEGMENTS])
+    n = N1_RPN_SEGMENTS[0]
+    for name, args in (("n1_ms", (b[:n], sc[:n], [n], 0.7, -0.5, [n])),
+                       ("n1_rpn_ms", (b, sc, N1_RPN_SEGMENTS, 0.7, -0.5, N1_RPN_SEGMENTS))):
+        rows = _n1_device_rows(lambda a=args: detection.nms_sorted_segments(*a))
+        log(f"launch check, N1 {name}: device rows of 10 calls (records, ms a record) {rows}")
+        if len(rows) != 1 or "nms_kernel" not in next(iter(rows)) or \
+                not 0 < next(iter(rows.values()))[0] <= 10:
+            raise AssertionError(f"N1: a presorted call must run one device kernel "
+                                 f"(nms_kernel) and nothing else: {rows}")
+        out[name] = next(iter(rows.values()))[1]
+    out["n3_ms"] = _n3_one_launch(N3_TRUNK, device)
+    return out
+
+
+def phase_launch_checks(card):
+    """``launch_checks`` in a fresh process of this script; returns its results."""
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--launch-checks"],
+                         capture_output=True, text=True, timeout=600, cwd=ROOT)
+    for line in res.stdout.splitlines()[:-1]:
+        log(line)
+    if res.returncode != 0:
+        raise AssertionError(f"launch checks failed ({res.returncode}):\n{res.stderr[-3000:]}")
+    out = json.loads(res.stdout.splitlines()[-1])
+    log(f"launch checks (fresh process): one device kernel a call for N1 and N3; device ms "
+        f"{out} ({card})")
+    return out
+
+
 def icn_int8_split(device="cuda", n=24, hw=256):
     """Device time of one quantized ICN forward at the scene's batch (N=24, 256^2,
     bf16 generators + the int8 tier), by kernel: N2 (kernels named ``conv_int8``), the
-    quantization (N3's ``amax_kernel`` / ``codes_kernel``, or, on a tree without N3,
+    quantization (N3's ``quant_int8_kernel``, or the earlier two-kernel N3's ``amax_kernel`` /
+    ``codes_kernel``,
+    or, on a tree without N3,
     the device time under ``layers.quantize_int8`` and ``cuda_conv.pack_int8_weights``)
     and the rest; with the forward's CUDA-event time, the bf16 forward's, and launches.
     Runs on whichever port package is first on ``sys.path``."""
@@ -1705,16 +1789,136 @@ def icn_int8_split(device="cuda", n=24, hw=256):
                if e.device_type == DeviceType.CUDA and not e.name.startswith("fusg.")]
     total = sum(t for _, t in kernels)
     n2 = sum(t for name, t in kernels if "conv_int8" in name)
-    n3 = sum(t for name, t in kernels if "amax_kernel" in name or "codes_kernel" in name)
+    n3 = sum(t for name, t in kernels
+             if any(tag in name for tag in ("quant_int8_kernel", "amax_kernel", "codes_kernel")))
     torch_quant = sum(e.device_time_total for e in events
                       if e.name == "fusg.int8_quantize" and e.device_type == DeviceType.CPU) / 1e3
     quant = n3 + torch_quant
+    memsets = [e for e in events if e.device_type == DeviceType.CUDA and "emset" in e.name]
     return dict(forward_ms=times, device_ms=total, n2_ms=n2, quant_ms=quant,
                 quant_by="N3" if n3 > 0 else "torch ops", rest_ms=total - n2 - quant,
-                n2_launches=launches[0], n3_launches=launches[1])
+                n2_launches=launches[0], n3_launches=launches[1],
+                memsets=len(memsets),
+                memset_ms=sum(e.time_range.elapsed_us() for e in memsets) / 1e3)
 
 
-def phase_int8(device, card):
+def split_report(device="cuda"):
+    """Where the device time goes, for the port package first on ``sys.path`` (this
+    tree's, or an earlier one's for before / after in one call). N1: ``nms_static`` on
+    1,000 boxes at the RPN's thresholds (and the presorted entry where the tree has it).
+    N3 at three shapes of the quantized bench scene (the trunk conv, the smallest
+    activation, the ICN's larger up stage), and again with the weight cut to 1x1xCx1
+    (the x codes alone) and with x cut to one pixel (the weight rows alone). Each: the
+    call by CUDA events over 20 back-to-back calls, one call's latency on the host's
+    clock (synchronized), and every device row of 10 profiled calls by name, ms a call
+    (launch gaps are the events' time less the rows'), and the time a call when the card
+    paces 20 queued calls (``paced``: the gaps between kernels on the card included).
+    Then N3's device time over one quantized bench scene: at each conv shape the scene
+    quantizes, the device rows of 10 profiled calls a call (memsets included) and the
+    paced time, times the scene's calls at that shape, summed. Last,
+    ``icn_int8_split``."""
+    from future_urban_scene_generation_tpu_torch.ops import cuda_conv, detection
+    from future_urban_scene_generation_tpu_torch.pipeline import runner, synthetic
+    from future_urban_scene_generation_tpu_torch.spec import SERVING_SPEC
+
+    def paced(fn, calls=20):
+        """ms a call with the card pacing the calls, gaps between kernels included: the
+        host queues them behind a kernel that sleeps ~25 ms, then events time them."""
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        queued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if queued > 0.01:
+            raise AssertionError(f"split: queueing {calls} calls took {queued:.4f} s, so the "
+                                 "card may have waited for the host")
+        return start.elapsed_time(end) / calls
+
+    def split(label, fn):
+        fn()
+        torch.cuda.synchronize()
+        ms = cuda_ms(fn, iters=20, warmup=2)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn()
+            torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / 10 * 1e3
+        rows = _n1_device_rows(fn)
+        listed = ", ".join(f"{k[:48]} x{n / 10:g} {t:.4f}" for k, (n, t) in
+                           sorted(rows.items(), key=lambda kv: -kv[1][0] * kv[1][1]))
+        log(f"split[{label}]: events {ms:.4f} ms a call, paced by the card {paced(fn):.4f} ms, "
+            f"one synchronized call {host_ms:.4f} ms, device rows "
+            f"{sum(n / 10 * t for n, t in rows.values()):.4f} ms a call (name, records a call, "
+            f"ms a record): {listed}")
+
+    gen = torch.Generator().manual_seed(3)
+    boxes = _n1_boxes(N1_BOXES, gen).to(device)
+    scores = _n1_rpn_scores(N1_BOXES, gen, device)
+    split("N1 nms_static, 1,000 boxes", lambda: detection.nms_static(boxes, scores, 0.7, -0.5,
+                                                                       N1_BOXES))
+    if hasattr(detection, "nms_sorted_segments"):
+        split("N1 presorted, 1,000 boxes", lambda: detection.nms_sorted_segments(
+            boxes, scores, [N1_BOXES], 0.7, -0.5, [N1_BOXES]))
+
+    spec_q = SERVING_SPEC.replace(quantized_convs=True)
+    sc = synthetic.make_bench_scene(V=4, hw=(1080, 1920), t_steps=6, device=device, spec=spec_q)
+    shapes = _record_int8_shapes(lambda: runner.run_scene(
+        sc.models, sc.cad_bank, sc.frame, sc.background, sc.bboxes, sc.meters, sc.intrinsic,
+        spec=spec_q))
+    del sc
+    trunk = max(shapes, key=lambda k: (shapes[k], _int8_work(k)[0]))
+    smallest = min(shapes, key=lambda k: math.prod(k[0]))
+    # The ICN's up stages: 3x3 phase-packed convs to four phases of half the channels.
+    up = max((k for k in shapes if k[0][0] == 24 and k[1][0] == 3 and k[1][3] == 2 * k[0][3]),
+             key=lambda k: math.prod(k[0]))
+    for name, key in (("trunk", trunk), ("smallest", smallest), ("up stage", up)):
+        x, w = _n3_inputs(key, device, torch.Generator().manual_seed(7))
+        x, w = x.to(device), w.to(device)
+        g = dict(key[3])
+        kw = dict(flip=bool(g.get("flip")), in_dilation=g.get("in_dilation", 1),
+                  pad_lo=g.get("pad_lo", 0))
+        x1, w1 = x[:1, :1, :1].contiguous(), w[:1, :1, :, :1]
+        for part, args in (("call", (x, w, kw)), ("x codes alone", (x, w1, {})),
+                           ("weight rows alone", (x1, w, kw))):
+            split(f"N3 {name} {key[0]} * {key[1]} {key[2]} {g}: {part}",
+                  lambda a=args: cuda_conv.quantize_int8_packed(a[0], a[1], **a[2]))
+    total, small, total_paced, small_paced = 0.0, 0.0, 0.0, 0.0
+    calls = sum(shapes.values())
+    for key, count in sorted(shapes.items(), key=lambda kv: -math.prod(kv[0][0])):
+        x, w = _n3_inputs(key, device, torch.Generator().manual_seed(7))
+        x, w = x.to(device), w.to(device)
+        g = dict(key[3])
+        kw = dict(flip=bool(g.get("flip")), in_dilation=g.get("in_dilation", 1),
+                  pad_lo=g.get("pad_lo", 0))
+        for _ in range(3):  # the tracer may drop every record of a profile: profile again
+            rows = _n1_device_rows(lambda: cuda_conv.quantize_int8_packed(x, w, **kw))
+            if any(tag in name for name in rows
+                   for tag in ("quant_int8_kernel", "amax_kernel", "codes_kernel")):
+                break
+        else:
+            raise AssertionError(f"split: no N3 kernel record at {key} in three profiles")
+        ms = sum(n / 10 * t for n, t in rows.values())
+        ms_paced = paced(lambda: cuda_conv.quantize_int8_packed(x, w, **kw))
+        total += count * ms
+        total_paced += count * ms_paced
+        if key[0][0] != 24:  # perception's convs (the ICN's run at the scene's batch, 24)
+            small += count * ms
+            small_paced += count * ms_paced
+        log(f"split[N3 scene {key[0]} * {key[1]} {key[2]} {g}]: {count} calls x "
+            f"{ms:.4f} ms on the device ({ms_paced:.4f} paced by the card)")
+    log(f"split[N3 over one quantized scene]: {calls} calls, {total:.4f} ms on the device "
+        f"({small:.4f} of it in the perception's convs, the rest the ICN's); paced by the "
+        f"card, gaps between kernels included: {total_paced:.4f} ({small_paced:.4f})")
+    log("split[ICN]: " + json.dumps(icn_int8_split(device)))
+
+
+def phase_int8(device, card, launch):
     """The int8 serving tier: N2 against its plain version at every conv shape of the
     quantized bench scene and erase and at every instantiation, N3 against its plain
     version and the CPU, times, the ICN forward's split, the JAX package's quality bars
@@ -1767,6 +1971,22 @@ def phase_int8(device, card):
     with open(os.path.join(OUT_DIR, "int8.txt"), "w") as fh:
         fh.write("\n".join(report) + "\n")
     trunk = max(scene_shapes, key=lambda k: (scene_shapes[k], _int8_work(k)[0]))
+    t = timed[trunk]
+    n3_device = launch["n3_ms"]
+    # Yardstick for N3's two passes over x: the card's practical rate on one copy of the
+    # trunk activation (read once, written once), by CUDA events.
+    xb = _n3_inputs(trunk, device, torch.Generator().manual_seed(9))[0].to(device)
+    yb = torch.empty_like(xb)
+    copy_ms = cuda_ms(lambda: yb.copy_(xb), iters=20, warmup=3)
+    log(f"int8: yardstick: a copy of the trunk activation ({nbytes(xb) / 1e6:.1f} MB read, the "
+        f"same written) {copy_ms:.4f} ms = {2 * nbytes(xb) / copy_ms / 1e9:.2f} TB/s; N3 reads "
+        f"x twice and writes its codes once ({card})")
+    del xb, yb
+    log(f"int8: N3 at the trunk's activation {trunk[0]} {trunk[2]}: {t['n3_ms']:.4f} ms by CUDA "
+        f"events, {n3_device:.4f} ms on the device (profiler), one launch a call (the earlier "
+        f"design: 0.0990 ms in three device operations, a memset and two kernels); bound "
+        f"{t['n3_bound']:.4f} ms by {t['n3_by']}: {100 * t['n3_bound'] / t['n3_ms']:.0f}% of it; "
+        f"the torch composition {t['n3_plain_ms']:.4f} ms ({card})")
     for label, shapes in (("scene", scene_shapes), ("erase", erase_shapes)):
         per = {name: sum(timed[k][name] * shapes[k] for k in shapes)
                for name in ("ms", "bound", "n3_ms", "n3_bound")}
@@ -1847,7 +2067,6 @@ def phase_int8(device, card):
         f"bf16 alone, same call: median {statistics.median(float_times):.2f} ms); launches a "
         f"scene: " + ", ".join(f"{k} {v / MAIN_SCENES:g}" for k, v in launches.items())
         + f"; frames finite ({card})")
-    t = timed[trunk]
     records = [
         dict(name="conv_int8", route="cuda",
              source="future_urban_scene_generation_tpu_torch/csrc/conv_int8.cu",
@@ -2401,6 +2620,9 @@ GPU_CPU_REL_L2 = 5e-2  # the standing GPU-vs-CPU bar (ROADMAP.md); float64 at 1e
 MASKRCNN_INPUT_HW = (512, 1024)
 MASKRCNN_FRAMES = 8  # TrackingStreamRunner frames with the Mask R-CNN detector
 N1_BOXES = 1000
+# The RPN's five levels at MASKRCNN_INPUT_HW: the top 1,000 anchors of each, of the
+# 8 x 16 x 3 = 384 at stride 64.
+N1_RPN_SEGMENTS = (1000, 1000, 1000, 1000, 384)
 
 
 def _sn_triple(w: torch.Tensor, dim: int, gen: torch.Generator):
@@ -2492,7 +2714,7 @@ def _cli_request(device, ctx, ckpt, label, extra, card):
         rc = run_test.main(argv)
     secs = time.perf_counter() - t0
     launches = {"raster": cuda_raster.LAUNCHES, "icn_stem_conv": cuda_conv.LAUNCHES,
-                "nms_static": detection.NMS_LAUNCHES}
+                "nms_segments": detection.NMS_LAUNCHES}
     n_png = sum(len(fs) for _, _, fs in os.walk(out))
     took = [ln for ln in said.getvalue().splitlines() if ln.startswith("Prediction of")]
     log(f"{label}[cli]: exit {rc} in {secs:.2f} s (service built and one request); the service "
@@ -2663,18 +2885,76 @@ def _conv_flop(net) -> float:
     return total
 
 
-def _n1_check(device, card):
-    """Kernel N1 against its plain version on the card's tensors: 1,000 boxes with
-    tied scores (and the -1 scores of invalid entries), at the RPN's and the class
-    NMS's thresholds; indices must be equal. Then its times."""
+def _n1_boxes(n, gen, extent=800.0):
+    """n xyxy boxes in an ``extent``-wide field, every fifth duplicated (tied overlaps)."""
+    ctr = torch.rand(n, 2, generator=gen) * extent
+    size = torch.rand(n, 2, generator=gen) * 120 + 8
+    boxes = torch.cat([ctr - size / 2, ctr + size / 2], 1)
+    boxes[1::5] = boxes[0::5][: boxes[1::5].shape[0]]
+    return boxes
+
+
+def _n1_rpn_scores(n, gen, device):
+    """An RPN level's scores as ``maskrcnn._rpn_proposals`` makes them, on the card: the
+    sigmoid of logits in stable descending order (repeated logits, and logits whose
+    sigmoid rounds to 1: ties), -1 for a fifth of the boxes, wherever they fall."""
+    logits = torch.round(torch.randn(n, generator=gen) * 40) / 10
+    logits[torch.rand(n, generator=gen) < 0.1] = 20.0
+    logits = torch.sort(logits, descending=True, stable=True).values.to(device)
+    tiny = (torch.rand(n, generator=gen) < 0.2).to(device)
+    return torch.where(tiny, torch.full_like(logits, -1.0), torch.sigmoid(logits))
+
+
+def _n1_segments_case(label, boxes, scores, lens, iou, thr, max_outs):
+    """One N1 call over presorted segments against the plain loop a segment (no sort),
+    after a call on other thresholds (so that stale outputs would show). Returns the
+    number of indices that differ."""
     from future_urban_scene_generation_tpu_torch.ops import detection
+
+    detection.nms_sorted_segments(boxes, scores, lens, 0.0, -2.0, max_outs)
+    got = detection.nms_sorted_segments(boxes, scores, lens, iou, thr, max_outs)
+    want = [detection.nms_sorted_plain(b, sc, iou, thr, m)
+            for b, sc, m in zip(boxes.split(lens), scores.split(lens), max_outs)]
+    torch.cuda.synchronize()
+    bad = sum(int((g != w).sum()) for g, w in zip(got, want))
+    kept = [int((w >= 0).sum()) for w in want]
+    log(f"n1[{label}: segments {list(lens)}, iou {iou}, score > {thr}, max {list(max_outs)}]: "
+        f"kept {kept}; indices equal to the plain loop's: {bad == 0}")
+    return bad, got
+
+
+def _n1_device_rows(fn, calls=10):
+    """Device rows of ``calls`` profiled calls of ``fn``: {kernel name: (records, ms a
+    record)} (the tracer may drop a record, so the time is over the records traced)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count, e.self_device_time_total / 1e3 / max(e.count, 1))
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def _n1_check(device, card, launch):
+    """Kernel N1 against its plain version on the card's tensors, indices equal in every
+    case: ``nms_static`` (a sort, then one launch) on 1,000 boxes with tied scores and
+    the -1 scores of invalid entries at the RPN's and the class NMS's thresholds; the
+    presorted entry on the RPN's five segments (and each segment against ``nms_static``,
+    which sorts: the RPN's -1 scores and sigmoid ties change no kept index), on single
+    segments of 1, 63, 65 and 1,000 boxes, segments above 1,024 boxes (the mask in a
+    global scratch), all scores invalid and fewer outputs than kept boxes. Then the times
+    and the bound; ``launch`` holds the device times of ``launch_checks`` (a fresh
+    process). The record's ``ms`` is the wrapper ``maskrcnn_infer`` calls
+    (``nms_sorted_segments``) at 1,000 boxes."""
+    from future_urban_scene_generation_tpu_torch.ops import _kernels, detection
 
     gen = torch.Generator().manual_seed(3)
     n = N1_BOXES
-    ctr = torch.rand(n, 2, generator=gen) * 800
-    size = torch.rand(n, 2, generator=gen) * 120 + 8
-    boxes = torch.cat([ctr - size / 2, ctr + size / 2], 1)
-    boxes[1::5] = boxes[0::5][: boxes[1::5].shape[0]]  # duplicate boxes with tied scores
+    boxes = _n1_boxes(n, gen)
     scores = torch.round(torch.rand(n, generator=gen) * 16) / 16
     scores[torch.rand(n, generator=gen) < 0.2] = -1.0
     boxes, scores = boxes.to(device), scores.to(device)
@@ -2684,15 +2964,62 @@ def _n1_check(device, card):
         want = detection.nms_plain(boxes, scores, iou, thr, max_out)
         torch.cuda.synchronize()
         mismatched += int((got != want).sum())
-        log(f"n1[{n} boxes, iou {iou}, score > {thr}, max {max_out}]: {int((want >= 0).sum())} "
-            f"kept; indices equal to the plain version: {bool(torch.equal(got, want))}")
+        log(f"n1[nms_static, {n} boxes, iou {iou}, score > {thr}, max {max_out}]: "
+            f"{int((want >= 0).sum())} kept; indices equal to the plain version: "
+            f"{bool(torch.equal(got, want))}")
+
+    # The RPN's call: five presorted segments, and each against nms_static (it sorts).
+    rpn_b = torch.cat([_n1_boxes(k, gen, 1024.0) for k in N1_RPN_SEGMENTS]).to(device)
+    rpn_s = torch.cat([_n1_rpn_scores(k, gen, device) for k in N1_RPN_SEGMENTS])
+    rpn = (rpn_b, rpn_s, N1_RPN_SEGMENTS, 0.7, -0.5, N1_RPN_SEGMENTS)
+    bad, got = _n1_segments_case("RPN", *rpn)
+    mismatched += bad
+    sorted_bad = 0
+    for b, sc, g in zip(rpn_b.split(N1_RPN_SEGMENTS), rpn_s.split(N1_RPN_SEGMENTS), got):
+        ref, _ = detection.nms_static(b, sc, 0.7, -0.5, b.shape[0])
+        sorted_bad += int((g != ref).sum())
+    log(f"n1[RPN]: each segment equal to nms_static on it (which sorts): {sorted_bad == 0}")
+    mismatched += sorted_bad
+    cases = [(f"{k} boxes", [k], 0.7, [k]) for k in (1, 63, 65, n)]
+    cases += [("class NMS, 100 of more kept", [n], 0.5, [100]),
+              ("max below kept", [n], 0.7, [40])]
+    for label, lens, iou, max_outs in cases:
+        b = _n1_boxes(sum(lens), gen).to(device)
+        sc = _n1_rpn_scores(sum(lens), gen, device)
+        if sum(lens) == 1:
+            sc = sc.abs()  # one box, kept
+        mismatched += _n1_segments_case(label, b, sc, lens, iou, -0.5, max_outs)[0]
+    invalid = torch.full((n,), -1.0, device=device)
+    bad, got = _n1_segments_case("all scores invalid", boxes, invalid, [n], 0.7, -0.5, [n])
+    mismatched += bad + int((got[0] != -1).sum())
+    big_lens = (2048, 700, 4096)
+    big = (torch.cat([_n1_boxes(k, gen, 1600.0) for k in big_lens]).to(device),
+           torch.cat([_n1_rpn_scores(k, gen, device) for k in big_lens]), big_lens, 0.5, -0.5,
+           (2048, 100, 4096))
+    mismatched += _n1_segments_case("global scratch above 1,024", *big)[0]
+    one = (rpn_b[:n], rpn_s[:n], [n], 0.7, -0.5, [n])
+    big1 = (big[0][:2048], big[1][:2048], [2048], 0.5, -0.5, [2048])
+    # Times by CUDA events over 50 back-to-back calls: the wrapper (whose host time paces
+    # the loop where it exceeds the kernel's) and the kernel alone (its launch arguments
+    # built beforehand, so that the host outpaces the card).
+    lib = _kernels.load()
+    times, wrapper = {}, {}
+    for label, (b, sc, lens, iou, thr, max_outs) in (("1,000", one), ("RPN", rpn),
+                                                     ("2,048", big1)):
+        _, args, keep = detection._nms_args(b, sc, lens, max_outs, iou, thr)
+        times[label] = cuda_ms(lambda a=args: lib.fusg_nms_segments(*a), iters=50, warmup=3)
+        wrapper[label] = cuda_ms(
+            lambda: detection.nms_sorted_segments(b, sc, lens, iou, thr, max_outs),
+            iters=50, warmup=3)
+        del keep
     if mismatched:
         raise AssertionError(f"kernel N1 disagrees with its plain version ({mismatched} indices)")
-    ms = cuda_ms(lambda: detection.nms_static(boxes, scores, 0.7, -0.5, n), iters=20, warmup=3)
+    static_ms = cuda_ms(lambda: detection.nms_static(boxes, scores, 0.7, -0.5, n), iters=50,
+                        warmup=3)
+    device_ms, rpn_device_ms = launch["n1_ms"], launch["n1_rpn_ms"]
 
     def plain():
-        detection.nms_plain(boxes, scores, 0.7, -0.5, n)
-        torch.cuda.synchronize()
+        detection.nms_sorted_segments(one[0].cpu(), one[1].cpu(), *one[2:])
 
     plain()
     t0 = time.perf_counter()
@@ -2701,16 +3028,23 @@ def _n1_check(device, card):
     plain_ms = (time.perf_counter() - t0) / 3 * 1e3
     # Each input read once (boxes, scores), the indices written once; n^2 / 2 IoUs of
     # about 12 float32 operations.
-    bound, by = bound_ms(nbytes(boxes, scores) + 8 * n, 12.0 * n * n / 2, PEAK_F32)
-    log(f"n1 time at the RPN's shape ({n} boxes): N1 {ms:.4f} ms (sort, two launches); plain "
-        f"version (IoU matrix on the card, the greedy loop on the host) {plain_ms:.3f} ms; "
-        f"bound {bound:.5f} ms by {by}; no library call in PyTorch ({card})")
-    return dict(name="nms_static", route="cuda",
+    bound, by = bound_ms(nbytes(*one[:2]) + 8 * n, 12.0 * n * n / 2, PEAK_F32)
+    log(f"n1 times (CUDA events, 50 calls; wrapper / kernel alone): nms_static with its sort, "
+        f"{n} boxes, {static_ms:.4f} ms (the earlier two-kernel nms_static, measured the same "
+        f"way: 0.2911 ms = stable sort, gather, copies, mask kernel, one warp's scan); one "
+        f"presorted segment of {n} boxes {wrapper['1,000']:.4f} / {times['1,000']:.4f} ms, "
+        f"nms_kernel {device_ms:.4f} ms on the device (profiler); the RPN's five segments "
+        f"{list(N1_RPN_SEGMENTS)} in one call {wrapper['RPN']:.4f} / {times['RPN']:.4f} ms, "
+        f"device {rpn_device_ms:.4f} (before: five nms_static calls, ~5 x 0.2512); one "
+        f"2,048-box segment (global scratch) {wrapper['2,048']:.4f} / {times['2,048']:.4f} ms; "
+        f"plain version (IoU matrix and greedy loop on the host) {plain_ms:.3f} ms; bound "
+        f"{bound:.5f} ms by {by}; no library call in PyTorch ({card})")
+    return dict(name="nms_segments", route="cuda",
                 source="future_urban_scene_generation_tpu_torch/csrc/nms.cu",
                 replaces="none: not a TPU kernel port (the JAX nms_static, "
                          "future_urban_scene_generation_tpu/ops/detection.py:45, is a lax.scan)",
-                max_abs_err=float(mismatched), ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, library_ms=None)
+                max_abs_err=float(mismatched), ms=wrapper["1,000"], plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None)
 
 
 def _rel_l2(a, b) -> float:
@@ -2759,11 +3093,11 @@ def _maskrcnn_card_vs_cpu(model, frame, device, card):
 
 
 def phase_maskrcnn(device, card, ctx):
-    """Kernel N1 against its plain version; ``cli.run_test --inpaint --segmenter
-    maskrcnn`` at 720x1280, V=4, with a seeded full-width ResNet-50-FPN (91 classes)
-    from the zoo; the detector's time per frame; ``TrackingStreamRunner`` with
+    """``cli.run_test --inpaint --segmenter maskrcnn`` at 720x1280, V=4, with a seeded
+    full-width ResNet-50-FPN (91 classes) from the zoo, whose request must make two N1
+    calls a frame; the detector's time per frame; ``TrackingStreamRunner`` with
     ``MaskRCNNDetector`` over 8 frames; the network on the card against the CPU.
-    Returns (N1's record, its launches in the CLI's request)."""
+    Returns N1's launches in the CLI's request (the n1 phase holds the kernel)."""
     from future_urban_scene_generation_tpu_torch.models.maskrcnn import maskrcnn_infer
     from future_urban_scene_generation_tpu_torch.ops import detection
     from future_urban_scene_generation_tpu_torch.ops.resize import resize_bilinear
@@ -2771,7 +3105,6 @@ def phase_maskrcnn(device, card, ctx):
     from future_urban_scene_generation_tpu_torch.pipeline import tracking as trk
 
     sys.modules["yaml"] = None  # the sidecar and config.yml are read without PyYAML (F7)
-    record = _n1_check(device, card)
     _serving_setup(device, ctx)
     ckpt = os.path.join(ctx["root"], "ckpt_maskrcnn")
     _write_edgeconnect_zoo(ckpt)
@@ -2779,8 +3112,11 @@ def phase_maskrcnn(device, card, ctx):
     launches, out = _cli_request(device, ctx, ckpt, "maskrcnn",
                                  ["--inpaint", "--segmenter", "maskrcnn"], card)
     shutil.rmtree(out)
-    if launches["nms_static"] != 6 * 6:
-        raise AssertionError(f"maskrcnn: {launches['nms_static']} N1 launches, not 6 frames x 6")
+    # Six frames a request, two N1 calls a frame: the RPN's five levels in one, the class
+    # NMS (six a frame before the levels shared one call).
+    if launches["nms_segments"] != 6 * 2:
+        raise AssertionError(f"maskrcnn: {launches['nms_segments']} N1 launches, not 6 frames "
+                             "x 2")
 
     svc = _inpaint_service(device, ctx, ckpt, "maskrcnn")
     frame, background, bboxes = _request_parts(svc, device, "maskrcnn", card)
@@ -2795,15 +3131,12 @@ def phase_maskrcnn(device, card, ctx):
         f"{[int(m.sum()) for m in masks]}")
     infer_ms = cuda_ms(lambda: maskrcnn_infer(seg.model, resize_bilinear(frame_d, seg.input_hw)),
                        iters=5, warmup=1)
-    rng = torch.Generator().manual_seed(5)
-    b_rpn = torch.rand(1000, 4, generator=rng).to(device).sort(-1).values * 500
-    s_rpn = torch.rand(1000, generator=rng).to(device)
-    nms_rpn = cuda_ms(lambda: detection.nms_static(b_rpn, s_rpn, 0.7, -0.5, 1000), iters=20)
-    nms_cls = cuda_ms(lambda: detection.nms_static(b_rpn, s_rpn, 0.5, -0.5, 100), iters=20)
+    detection.NMS_LAUNCHES = 0
+    maskrcnn_infer(seg.model, resize_bilinear(frame_d, seg.input_hw))
     log(f"maskrcnn: detector (resize + maskrcnn_infer, {MASKRCNN_INPUT_HW[0]}x"
-        f"{MASKRCNN_INPUT_HW[1]}) {infer_ms:.2f} ms a frame by CUDA events; N1 at the path's "
-        f"shapes: {nms_rpn:.4f} ms (RPN level, 1,000 boxes, IoU 0.7), {nms_cls:.4f} ms (classes, "
-        f"1,000 candidates, 100 out), about {5 * nms_rpn + nms_cls:.3f} ms of the frame ({card})")
+        f"{MASKRCNN_INPUT_HW[1]}) {infer_ms:.2f} ms a frame by CUDA events (31.26 ms with six N1 "
+        f"calls a frame); N1 {detection.NMS_LAUNCHES} calls a frame (the n1 phase times them "
+        f"at these shapes) ({card})")
     _maskrcnn_card_vs_cpu(seg.model, frame, device, card)
 
     detector = trk.MaskRCNNDetector(seg.model, input_hw=seg.input_hw, device=device)
@@ -2836,7 +3169,7 @@ def phase_maskrcnn(device, card, ctx):
     svc.close()
     shutil.rmtree(svc.cfg.output_dir, ignore_errors=True)
     shutil.rmtree(ckpt)
-    return record, launches["nms_static"]
+    return launches["nms_segments"]
 
 
 # --- The EdgeConnect trainers (S9b): cli.train --model edge|inpaint, export -> serve ---
@@ -3104,17 +3437,28 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
     ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--icn-split", metavar="PACKAGE_ROOT",
-                    help="only the device-time split of one quantized ICN forward, of the "
-                         "port package under PACKAGE_ROOT (e.g. an unpacked earlier commit)")
+    ap.add_argument("--split", metavar="PACKAGE_ROOT",
+                    help="only where the device time of N1, N3 and the quantized ICN forward "
+                         "goes, for the port package under PACKAGE_ROOT (e.g. an unpacked "
+                         "earlier commit)")
+    ap.add_argument("--launch-checks", action="store_true",
+                    help="only the profiled one-kernel-a-call checks of N1 and N3 (run by "
+                         "the n1 and int8 phases in a fresh process)")
     args = ap.parse_args()
-    if args.icn_split:
+    if args.launch_checks:
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: CUDA is not available")
+        sys.path.insert(0, ROOT)
+        print(json.dumps(launch_checks()), flush=True)
+        return
+    if args.split:
         name, smi = phase_device()
-        sys.path.insert(0, os.path.abspath(args.icn_split))
+        sys.path.insert(0, os.path.abspath(args.split))
         from future_urban_scene_generation_tpu_torch.ops import _kernels
 
         _kernels.load()
-        log(f"icn split of {_kernels.__file__}: " + json.dumps(icn_int8_split()) + f" ({smi})")
+        log(f"split of {_kernels.__file__} ({smi})")
+        split_report()
         return
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(ALL_PHASES)
@@ -3125,6 +3469,7 @@ def main():
     sys.path.insert(0, ROOT)
     phase_build()
     device = "cuda"
+    launch = phase_launch_checks(smi) if {"n1", "int8"} & set(phases) else {}
     t_start = time.perf_counter()
     kernels, launches, serving = [], {}, {}
     if "k1" in phases:
@@ -3138,7 +3483,7 @@ def main():
     if "main" in phases:
         launches = phase_main(device, args.profile, smi)
     if "int8" in phases:
-        records, int8_launches = phase_int8(device, smi)
+        records, int8_launches = phase_int8(device, smi, launch)
         kernels.extend(records)
         launches["conv_int8"] = int8_launches["conv_int8"]
         launches["quant_int8"] = int8_launches["quant_int8"]
@@ -3146,6 +3491,8 @@ def main():
         launches.update(phase_train(device, smi))
     if "demo" in phases:
         launches["rasterize_indexed"] = phase_demo(device, smi)["rasterize_indexed"]
+    if "n1" in phases:
+        kernels.append(_n1_check(device, smi, launch))
     try:
         if "serve" in phases:
             phase_serve(device, smi, serving)
@@ -3159,8 +3506,7 @@ def main():
         if "inpaint" in phases:
             phase_inpaint(device, smi, serving)
         if "maskrcnn" in phases:
-            record, launches["nms_static"] = phase_maskrcnn(device, smi, serving)
-            kernels.append(record)
+            launches["nms_segments"] = phase_maskrcnn(device, smi, serving)
     finally:
         _drop_serving_data(serving)  # ~130 MB of frames and results stay on the machine
     if "warmup" in phases:

@@ -5,7 +5,7 @@
 // Not a port of a TPU kernel: the JAX package computes this product in XLA, as an
 // int8 lax.conv_general_dilated with an int32 accumulator (models/layers.py:206-214
 // _int8_conv, :233-241 _int8_conv_transpose). Its operands come from N3
-// (quant_int8.cu), which quantizes the activation and the weight in two launches and
+// (quant_int8.cu), which quantizes the activation and the weight in one launch and
 // writes the weight codes as an image of this kernel's shared-memory tiles.
 //
 // What bounds it on an H100: an implicit GEMM of M = N*Ho*Wo output pixels, N_gemm =

@@ -56,16 +56,21 @@ int fusg_conv_small_cin(const void* x, const void* wmat, void* out, int dtype, i
 // what ops/cuda_conv.py conv_plan mirrors on the Python side.
 int fusg_conv_smem_bytes(int dtype, int cin, int k, int cout);
 
-// N1 (nms.cu): greedy NMS of n boxes already sorted by descending score (stable).
-//   boxes_sorted (n, 4) f32 xyxy, scores_sorted (n,) f32, order (n,) i64 (original
-//   index of each sorted box); mask (n, ceil(n / 64)) u64 scratch; out (max_out,) i64:
-//   the first max_out kept boxes' original indices in score order, then -1. A box is
-//   kept when its score > score_thr and no kept box before it has IoU > iou_thr.
-//   n <= 4096 (the scan's shared memory, fusg_nms_smem_bytes(n) bytes, stays < 48 KB).
-int fusg_nms(const float* boxes_sorted, const float* scores_sorted, const long long* order,
-             int n, float iou_thr, float score_thr, int max_out, unsigned long long* mask,
-             long long* out, cudaStream_t stream);
-int fusg_nms_smem_bytes(int n);
+// N1 (nms.cu): greedy NMS of n_segments (<= 16) independent runs of boxes, each in
+// the order the greedy pass visits it (descending score), in one launch: a thread-block
+// cluster of 16 blocks a segment.
+//   boxes (N, 4) f32 xyxy, 16-byte aligned; scores (N,) f32; segment s: boxes
+//   [seg_start[s], seg_start[s] + seg_len[s]), seg_len[s] <= 4096, its output
+//   out[out_start[s] .. + max_out[s]) i64: the first max_out[s] kept boxes' positions in
+//   the segment, then -1; its overlap mask in rank 0's shared memory (scratch_start[s] =
+//   -1, seg_len[s] <= 1024) or at word scratch_start[s] of `scratch` (seg_len *
+//   ceil(seg_len / 64) u64). A box is kept when its score > score_thr and no kept box
+//   before it has IoU > iou_thr. The host arrays are read during the call.
+int fusg_nms_segments(const float* boxes, const float* scores, int n_segments,
+                      const int* seg_start, const int* seg_len, const int* out_start,
+                      const int* max_out, const long long* scratch_start, float iou_thr,
+                      float score_thr, unsigned long long* scratch, long long* out,
+                      cudaStream_t stream);
 
 // N2 (conv_int8.cu): int8 codes convolved with exact int32 accumulation, then
 // out = float32(acc) * sw[o] as float32 (out_dtype 0) or bfloat16 (1), NHWC.
@@ -88,15 +93,21 @@ int fusg_conv_transpose_int8(const void* x, const void* wimg, const float* sw, v
 int fusg_int8_plan(int c, int k, int cout, int phase_s, int* out);
 
 // N3 (quant_int8.cu): the int8 tier's quantization of one conv's operands for N2.
-//   x (n, h, w, c) f32 (dtype 0) or bf16 (1), contiguous; wt: the HWIO kernel in x's
-//   dtype at element strides (s_ky, s_kx, s_c, s_o), negative for a flipped view;
-//   amax (c,) u32 scratch; xq (n, h, w, round16(c)) s8 out; wimg (phases * o_tiles *
-//   k_img * bn) s8 out; sw (cout,) f32 out. phase_s, lo: a transposed conv's stride
-//   and low padding (1, 0 for the conv). Zeroes amax, then two launches.
+//   x (n, h, w, c) f32 (dtype 0) or bf16 (1), contiguous, c <= 2048; wt: the HWIO
+//   kernel in x's dtype at element strides (s_ky, s_kx, s_c, s_o), negative for a
+//   flipped view; part (c, part_slices) u32 scratch, part_slices >= the SM count x
+//   fusg_quant_int8_slices(); wmax (cout, c) and amax (c,) u32 scratch; xq (n, h, w,
+//   round16(c)) s8 out;
+//   wimg (phases * o_tiles * k_img * bn) s8 out; sw (cout,) f32 out. phase_s, lo: a
+//   transposed conv's stride and low padding (1, 0 for the conv). One cooperative
+//   launch; no scratch needs zeroing.
 int fusg_quant_int8(const void* x, int dtype, int n, int h, int w, int c, const void* wt,
                     long long s_ky, long long s_kx, long long s_c, long long s_o, int k,
-                    int cout, int phase_s, int lo, unsigned* amax, void* xq, void* wimg,
-                    float* sw, cudaStream_t stream);
+                    int cout, int phase_s, int lo, unsigned* part, int part_slices,
+                    unsigned* wmax, unsigned* amax, void* xq, void* wimg, float* sw,
+                    cudaStream_t stream);
+// Blocks an SM N3 launches at most (its partials' slices an SM).
+int fusg_quant_int8_slices(void);
 
 #ifdef __cplusplus
 }

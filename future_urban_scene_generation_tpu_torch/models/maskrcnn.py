@@ -24,7 +24,12 @@ Geometry follows torchvision's detection defaults, as the JAX package does:
 
 Invalid entries carry score -1 into every cut, so ties straddle them: every top-k
 and sort is a stable descending sort (``ops.detection.sort_desc``), as
-``lax.top_k`` and ``jnp.argsort`` are. The NMS calls launch kernel N1 on the card.
+``lax.top_k`` and ``jnp.argsort`` are. Both NMS passes take boxes already in that
+order (``ops.detection.nms_sorted_segments``: no second sort): the five RPN levels in
+one call, their -1 scores where they fall, since a box under the score threshold is
+never kept and suppresses nothing and ``sigmoid`` keeps the logits' order; the class
+NMS on its top-1,000 candidates. On the card each call is one launch of kernel N1, two
+a frame.
 """
 from __future__ import annotations
 
@@ -42,7 +47,7 @@ from future_urban_scene_generation_tpu_torch.models.layers import (
 )
 from future_urban_scene_generation_tpu_torch.ops import crop as cr
 from future_urban_scene_generation_tpu_torch.ops.detection import (
-    nms_static,
+    nms_sorted_segments,
     roi_align_levels,
     topk_stable,
 )
@@ -353,9 +358,9 @@ class Detections(NamedTuple):
 
 
 def _rpn_proposals(model, logits, deltas, h, w, pre_nms_top_n, post_nms_top_n):
-    """Per level: top-k objectness, decode, clip, tiny boxes to score -1, NMS; then
-    the top ``post_nms_top_n`` over all levels."""
-    all_boxes, all_scores = [], []
+    """Per level: top-k objectness, decode, clip, tiny boxes to score -1; one NMS call
+    over the levels' segments; then the top ``post_nms_top_n`` over all levels."""
+    level_boxes, level_scores = [], []
     for i, (lg, dl) in enumerate(zip(logits, deltas)):
         fh, fw = lg.shape[1:3]
         anchors = grid_anchors(fh, fw, STRIDES[i], ANCHOR_SIZES[i], device=lg.device,
@@ -366,14 +371,19 @@ def _rpn_proposals(model, logits, deltas, h, w, pre_nms_top_n, post_nms_top_n):
         top_scores, top_idx = topk_stable(scores, k)
         boxes = clip_boxes(decode_boxes(dl_hw[top_idx], anchors[top_idx]), h, w)
         keep_size = ((boxes[:, 2] - boxes[:, 0]) >= 1e-3) & ((boxes[:, 3] - boxes[:, 1]) >= 1e-3)
-        scores_lvl = torch.where(keep_size, torch.sigmoid(top_scores),
-                                 torch.full_like(top_scores, -1.0))
-        idx, valid = nms_static(boxes, scores_lvl, iou_threshold=0.7, score_threshold=-0.5,
-                                max_outputs=min(post_nms_top_n, k))
+        level_boxes.append(boxes)
+        level_scores.append(torch.where(keep_size, torch.sigmoid(top_scores),
+                                        torch.full_like(top_scores, -1.0)))
+    lens = [b.shape[0] for b in level_boxes]
+    kept = nms_sorted_segments(torch.cat(level_boxes), torch.cat(level_scores), lens,
+                               iou_threshold=0.7, score_threshold=-0.5,
+                               max_outputs=[min(post_nms_top_n, k) for k in lens])
+    all_boxes, all_scores = [], []
+    for boxes, scores_lvl, idx in zip(level_boxes, level_scores, kept):
         sel = torch.clamp(idx, min=0)
         all_boxes.append(boxes[sel])
-        all_scores.append(torch.where(valid, scores_lvl[sel], torch.full_like(sel, -1.0,
-                                                                              dtype=torch.float32)))
+        all_scores.append(torch.where(idx >= 0, scores_lvl[sel],
+                                      torch.full_like(sel, -1.0, dtype=torch.float32)))
     proposals = torch.cat(all_boxes)
     prop_scores = torch.cat(all_scores)
     _, keep = topk_stable(prop_scores, min(post_nms_top_n, prop_scores.shape[0]))
@@ -416,8 +426,10 @@ def maskrcnn_infer(model: MaskRCNN, image: torch.Tensor, pre_nms_top_n: int = 10
     cand_boxes = flat_boxes[cand_idx]
     cand_labels = flat_labels[cand_idx]
     offset = cand_labels.to(torch.float32)[:, None] * (max(h, w) + 2.0)
-    idx, valid = nms_static(cand_boxes + offset, cand_scores, iou_threshold=0.5,
-                            score_threshold=-0.5, max_outputs=detections_per_img)
+    (idx,) = nms_sorted_segments(cand_boxes + offset, cand_scores, [cand_scores.shape[0]],
+                                 iou_threshold=0.5, score_threshold=-0.5,
+                                 max_outputs=[detections_per_img])
+    valid = idx >= 0
     sel = torch.clamp(idx, min=0)
     det_boxes = cand_boxes[sel]
     det_scores = torch.where(valid, cand_scores[sel], torch.zeros_like(cand_scores[sel]))

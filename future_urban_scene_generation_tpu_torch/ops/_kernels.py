@@ -130,10 +130,9 @@ def _bind(lib):
     lib.fusg_conv_small_cin.restype = i
     lib.fusg_conv_smem_bytes.argtypes = [i, i, i, i]
     lib.fusg_conv_smem_bytes.restype = i
-    lib.fusg_nms.argtypes = [p, p, p, i, ctypes.c_float, ctypes.c_float, i, p, p, p]
-    lib.fusg_nms.restype = i
-    lib.fusg_nms_smem_bytes.argtypes = [i]
-    lib.fusg_nms_smem_bytes.restype = i
+    f = ctypes.c_float
+    lib.fusg_nms_segments.argtypes = [p, p, i, p, p, p, p, p, f, f, p, p, p]
+    lib.fusg_nms_segments.restype = i
     lib.fusg_conv_int8.argtypes = [p, p, p, p] + [i] * 13 + [p]
     lib.fusg_conv_int8.restype = i
     lib.fusg_conv_transpose_int8.argtypes = [p, p, p, p] + [i] * 12 + [p]
@@ -141,6 +140,9 @@ def _bind(lib):
     lib.fusg_int8_plan.argtypes = [i, i, i, i, p]
     lib.fusg_int8_plan.restype = i
     q = ctypes.c_longlong
-    lib.fusg_quant_int8.argtypes = [p, i, i, i, i, i, p, q, q, q, q, i, i, i, i, p, p, p, p, p]
+    lib.fusg_quant_int8.argtypes = [p, i, i, i, i, i, p, q, q, q, q, i, i, i, i, p, i, p, p, p,
+                                    p, p, p]
     lib.fusg_quant_int8.restype = i
+    lib.fusg_quant_int8_slices.argtypes = []
+    lib.fusg_quant_int8_slices.restype = i
     return lib

@@ -27,8 +27,9 @@ fused around it); ``models.layers`` dispatches to :func:`conv_int8_quantized`, N
 N2 (``quantized_convs``):
 
 * N3, :func:`quantize_int8_packed` (``csrc/quant_int8.cu``): the per-channel scales
-  and the codes of the activation and of the weight in two launches, the weight codes
-  written as N2's shared-memory image (:func:`pack_int8_image`); its plain version is
+  and the codes of the activation and of the weight in one cooperative launch (grid
+  barriers between the max pass and the codes), the weight codes written as N2's
+  shared-memory image (:func:`pack_int8_image`); its plain version is
   :func:`quantize_int8_plain` + packing.
 * N2, on the codes (``csrc/conv_int8.cu``): an implicit GEMM on ``wgmma`` s8 tensor
   cores, exact int32 accumulation, ``float32(acc) * sw[o]`` in the epilogue, for the
@@ -46,6 +47,7 @@ launches: ``LAUNCHES`` (K2), ``SMALL_CIN_V2_LAUNCHES`` (K3), ``SMALL_CIN_LAUNCHE
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import NamedTuple
 
@@ -604,9 +606,14 @@ def conv_int8(xq, wq, sw, out_dtype, *, stride: int = 1, pad_lo: int = 0, pad_hi
                              pad_lo, dilation, in_dilation)
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def quantize_int8_packed(x, w_hwio, *, flip: bool = False, in_dilation: int = 1,
                          pad_lo: int = 0):
-    """N3: the tier's quantization of one conv (``csrc/quant_int8.cu``), two launches.
+    """N3: the tier's quantization of one conv (``csrc/quant_int8.cu``), one launch.
     ``x`` (N, H, W, C) float32 or bfloat16, ``w_hwio`` (k, k, C, O) in x's dtype (any
     strides: a view of the layer's weight, not copied), ``flip``: the kernel is
     ``w_hwio`` flipped on both tap axes (a transposed conv's, read through negative
@@ -633,14 +640,21 @@ def quantize_int8_packed(x, w_hwio, *, flip: bool = False, in_dilation: int = 1,
     if flip:
         ptr += (k - 1) * (s_ky + s_kx) * w_hwio.element_size()
         s_ky, s_kx = -s_ky, -s_kx
-    amax = torch.empty(c, dtype=torch.int32, device=x.device)
-    xq = torch.empty((n, h, w, plan.cp), dtype=torch.int8, device=x.device)
-    img = torch.empty(plan.phases * plan.o_tiles * plan.k_img * plan.bn, dtype=torch.int8,
-                      device=x.device)
-    sw = torch.empty(o, dtype=torch.float32, device=x.device)
-    rc = _kernels.load().fusg_quant_int8(
+    lib = _kernels.load()
+    slices = _sm_count(x.device) * lib.fusg_quant_int8_slices()
+    # One allocation carved into the weight image, the x codes, sw and the kernel's
+    # scratch (the maxima, their per-block partials, the weight's maxima over its taps),
+    # in that order: each part's size keeps the next one aligned.
+    sizes = (plan.phases * plan.o_tiles * plan.k_img * plan.bn, n * h * w * plan.cp, 4 * o,
+             4 * c, 4 * c * slices, 4 * o * c)
+    img, xq, sw, amax, part, wmax = torch.empty(sum(sizes), dtype=torch.int8,
+                                                device=x.device).split(sizes)
+    xq = xq.view(n, h, w, plan.cp)
+    sw = sw.view(torch.float32)
+    rc = lib.fusg_quant_int8(
         ctypes.c_void_p(x.data_ptr()), 0 if x.dtype == torch.float32 else 1, n, h, w, c,
         ctypes.c_void_p(ptr), s_ky, s_kx, s_c, s_o, k, o, in_dilation, pad_lo,
+        ctypes.c_void_p(part.data_ptr()), slices, ctypes.c_void_p(wmax.data_ptr()),
         ctypes.c_void_p(amax.data_ptr()), ctypes.c_void_p(xq.data_ptr()),
         ctypes.c_void_p(img.data_ptr()), ctypes.c_void_p(sw.data_ptr()), _stream(x))
     if rc != 0:

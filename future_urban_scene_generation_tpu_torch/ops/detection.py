@@ -7,11 +7,14 @@ Counterpart of the JAX package's ops/detection.py (:30-148):
 * ``nms_static``: greedy NMS returning the first ``max_outputs`` kept boxes'
   indices in score order, -1 padded, and their valid flags. Boxes are ordered by a
   stable descending sort (``jnp.argsort`` is stable; ties keep the lower index
-  first). A CPU tensor runs :func:`nms_plain`, the JAX ``lax.scan`` as a host loop;
-  a CUDA tensor launches kernel N1 (``csrc/nms.cu``: the pairwise overlap bitmask,
-  then one warp scanning it in score order), which gives the plain version's
-  indices exactly (the same IoU arithmetic, no contracted multiply-add);
-  ``NMS_LAUNCHES`` counts its launches;
+  first). ``nms_sorted_segments`` is the greedy pass itself over boxes the caller has
+  already put in score order, for several independent segments at once (Mask R-CNN's
+  five RPN levels), with no sort. A CPU tensor runs the plain versions
+  (:func:`nms_sorted_plain`, the JAX ``lax.scan`` as a host loop); a CUDA tensor
+  launches kernel N1 (``csrc/nms.cu``: one thread-block cluster a segment computing
+  the pairwise overlap bitmask into shared memory, then one warp scanning it), which
+  gives the plain version's indices exactly (the same IoU arithmetic, no contracted
+  multiply-add); ``NMS_LAUNCHES`` counts its launches, one a call;
 * ``roi_align``: torchvision's ROIAlign with aligned=True (half-pixel offset,
   ``sampling_ratio``^2 bilinear samples a bin, averaged) on (H, W, C) features, and
   ``roi_align_levels``, the same for boxes that each pool from their own pyramid
@@ -20,8 +23,9 @@ Counterpart of the JAX package's ops/detection.py (:30-148):
 from __future__ import annotations
 
 import ctypes
+import itertools
 import threading
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +33,12 @@ import torch
 from future_urban_scene_generation_tpu_torch.ops import _kernels
 
 NMS_LAUNCHES = 0
-NMS_MAX_BOXES = 4096  # the scan's shared memory (csrc/nms.cu)
+NMS_MAX_BOXES = 4096  # boxes a segment (csrc/nms.cu: the scan's 64 removed words)
+# Segments up to this many boxes keep their overlap mask (n * ceil(n / 64) words, at most
+# 128 KB) in the shared memory of their cluster's first block; a longer one writes it to
+# a global scratch the wrapper allocates (4,096 boxes: 2 MB, more than a block holds).
+NMS_SMEM_BOXES = 1024
+NMS_MAX_SEGMENTS = 16  # segments a launch (the kernel's by-value table)
 _COUNT_LOCK = threading.Lock()
 
 
@@ -61,16 +70,14 @@ def topk_stable(scores: torch.Tensor, k: int):
     return vals[:k], idx[:k]
 
 
-def nms_plain(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 0.5,
-              score_threshold: float = 0.0, max_outputs: int = 100) -> torch.Tensor:
+def nms_sorted_plain(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 0.5,
+                     score_threshold: float = 0.0, max_outputs: int = 100) -> torch.Tensor:
     """Plain version of N1: the JAX scan (detection.py:65-74) as a host loop over the
-    score-sorted boxes. Returns (max_outputs,) int64 original indices, -1 padded."""
-    _, order = sort_desc(scores)
-    boxes_s, scores_s = boxes[order], scores[order]
-    over = (batched_iou(boxes_s, boxes_s) > iou_threshold).cpu().numpy()
-    valid_score = (scores_s > score_threshold).cpu().numpy()
-    order_np = order.cpu().numpy()
-    n = len(order_np)
+    boxes in the order given. Returns (max_outputs,) int64 indices into ``boxes``,
+    -1 padded."""
+    over = (batched_iou(boxes, boxes) > iou_threshold).cpu().numpy()
+    valid_score = (scores > score_threshold).cpu().numpy()
+    n = len(valid_score)
     suppressed = np.zeros(n, bool)
     out = np.full(max_outputs, -1, np.int64)
     kept = 0
@@ -78,34 +85,95 @@ def nms_plain(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 
         if suppressed[i] or not valid_score[i]:
             continue
         if kept < max_outputs:
-            out[kept] = order_np[i]
+            out[kept] = i
         kept += 1
         suppressed[i + 1:] |= over[i, i + 1:]
     return torch.as_tensor(out, device=boxes.device)
 
 
-def _nms_launch(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
-                score_threshold: float, max_outputs: int) -> torch.Tensor:
-    n = boxes.shape[0]
-    if n > NMS_MAX_BOXES:
-        raise ValueError(f"nms_static: {n} boxes exceed kernel N1's limit {NMS_MAX_BOXES}")
-    out = torch.empty(max_outputs, dtype=torch.int64, device=boxes.device)
-    if n == 0:
-        return out.fill_(-1)
-    scores_s, order = sort_desc(scores.to(torch.float32))
-    boxes_s = boxes.to(torch.float32)[order].contiguous()
-    scores_s, order = scores_s.contiguous(), order.contiguous()
-    col_blocks = -(-n // 64)
-    mask = torch.empty((n, col_blocks), dtype=torch.int64, device=boxes.device)
-    rc = _kernels.load().fusg_nms(
-        ctypes.c_void_p(boxes_s.data_ptr()), ctypes.c_void_p(scores_s.data_ptr()),
-        ctypes.c_void_p(order.data_ptr()), n, float(iou_threshold), float(score_threshold),
-        max_outputs, ctypes.c_void_p(mask.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+def nms_plain(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 0.5,
+              score_threshold: float = 0.0, max_outputs: int = 100) -> torch.Tensor:
+    """:func:`nms_static`'s indices by the plain version: a stable descending sort, then
+    :func:`nms_sorted_plain`, mapped back to the original indices."""
+    _, order = sort_desc(scores)
+    idx = nms_sorted_plain(boxes[order], scores[order], iou_threshold, score_threshold,
+                           max_outputs)
+    return torch.where(idx >= 0, order[idx.clamp(min=0)], idx)
+
+
+def _nms_args(boxes: torch.Tensor, scores: torch.Tensor, lens: Sequence[int],
+              max_outs: Sequence[int], iou_threshold: float, score_threshold: float):
+    """The output and the argument tuple of one N1 launch (``fusg_nms_segments``) over
+    the segments; the tensors the launch reads are kept alive in the tuple's owner."""
+    if not 1 <= len(lens) <= NMS_MAX_SEGMENTS:
+        raise ValueError(f"N1: {len(lens)} segments, the kernel takes 1 to {NMS_MAX_SEGMENTS}")
+    if max(lens) > NMS_MAX_BOXES:
+        raise ValueError(f"N1: a segment of {max(lens)} boxes exceeds {NMS_MAX_BOXES}")
+    if boxes.dtype != torch.float32 or not boxes.is_contiguous() or boxes.data_ptr() % 16:
+        boxes = boxes.to(torch.float32).contiguous().clone()  # read as float4
+    if scores.dtype != torch.float32 or not scores.is_contiguous():
+        scores = scores.to(torch.float32).contiguous()
+    n_seg = len(lens)
+    scratch_at, words = [], 0
+    for n in lens:
+        if n > NMS_SMEM_BOXES:
+            scratch_at.append(words)
+            words += n * -(-n // 64)
+        else:
+            scratch_at.append(-1)
+    out = torch.empty(sum(max_outs), dtype=torch.int64, device=boxes.device)
+    scratch = torch.empty(words, dtype=torch.int64, device=boxes.device) if words else None
+    ints = ctypes.c_int * n_seg
+    args = (
+        ctypes.c_void_p(boxes.data_ptr()), ctypes.c_void_p(scores.data_ptr()), n_seg,
+        ints(*itertools.accumulate(lens[:-1], initial=0)), ints(*lens),
+        ints(*itertools.accumulate(max_outs[:-1], initial=0)), ints(*max_outs),
+        (ctypes.c_longlong * n_seg)(*scratch_at), float(iou_threshold), float(score_threshold),
+        ctypes.c_void_p(None if scratch is None else scratch.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()),
         ctypes.c_void_p(torch.cuda.current_stream(boxes.device).cuda_stream),
     )
+    return out, args, (boxes, scores, scratch)
+
+
+def _nms_launch(boxes: torch.Tensor, scores: torch.Tensor, lens: Sequence[int],
+                max_outs: Sequence[int], iou_threshold: float, score_threshold: float
+                ) -> torch.Tensor:
+    """One N1 launch over the segments; returns the outputs concatenated."""
+    global NMS_LAUNCHES
+    out, args, _keep = _nms_args(boxes, scores, lens, max_outs, iou_threshold,
+                                 score_threshold)
+    rc = _kernels.load().fusg_nms_segments(*args)
     if rc != 0:
-        raise RuntimeError(f"fusg_nms launch failed: CUDA error {rc}")
+        raise RuntimeError(f"fusg_nms_segments launch failed: CUDA error {rc}")
+    with _COUNT_LOCK:
+        NMS_LAUNCHES += 1
     return out
+
+
+def nms_sorted_segments(boxes: torch.Tensor, scores: torch.Tensor, seg_lens: Sequence[int],
+                        iou_threshold: float, score_threshold: float,
+                        max_outputs: Sequence[int]) -> List[torch.Tensor]:
+    """Greedy NMS of independent segments of boxes already in score order, in one
+    call. ``boxes`` (N, 4) xyxy and ``scores`` (N,) hold the segments one after the
+    other, ``seg_lens[s]`` rows each (sum N). Each segment is visited in the order
+    given, as :func:`nms_static` visits its sorted boxes; a box whose score is not
+    above ``score_threshold`` is never kept and suppresses nothing, so such boxes (the
+    RPN's -1 scores) may stand anywhere. Returns one (max_outputs[s],) int64 tensor a
+    segment: the first kept boxes' indices within the segment, -1 padded. CPU tensors
+    take :func:`nms_sorted_plain` a segment; CUDA tensors launch kernel N1 once for all
+    segments, or raise."""
+    lens, max_outs = [int(v) for v in seg_lens], [int(v) for v in max_outputs]
+    if len(lens) != len(max_outs) or sum(lens) != boxes.shape[0]:
+        raise ValueError(f"nms_sorted_segments: segments {lens} / outputs {max_outs} do not "
+                         f"fit {boxes.shape[0]} boxes")
+    if boxes.device.type == "cpu":
+        return [nms_sorted_plain(b, s, iou_threshold, score_threshold, m)
+                for b, s, m in zip(boxes.split(lens), scores.split(lens), max_outs)]
+    if boxes.device.type != "cuda":
+        raise ValueError(f"nms_sorted_segments: unsupported device {boxes.device}")
+    out = _nms_launch(boxes, scores, lens, max_outs, iou_threshold, score_threshold)
+    return [out] if len(lens) == 1 else list(out.split(max_outs))
 
 
 def nms_static(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 0.5,
@@ -114,17 +182,13 @@ def nms_static(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float =
     """Greedy NMS with a static output shape: boxes (N, 4) xyxy, scores (N,) ->
     (indices (max_outputs,) int64 padded with -1, valid (max_outputs,) bool). A box
     is kept when its score exceeds ``score_threshold`` and no kept box before it in
-    score order overlaps it by IoU > ``iou_threshold``. CPU tensors take
-    :func:`nms_plain`; CUDA tensors launch kernel N1."""
-    global NMS_LAUNCHES
-    if boxes.device.type == "cpu":
-        idx = nms_plain(boxes, scores, iou_threshold, score_threshold, max_outputs)
-    elif boxes.device.type == "cuda":
-        idx = _nms_launch(boxes, scores, iou_threshold, score_threshold, max_outputs)
-        with _COUNT_LOCK:
-            NMS_LAUNCHES += 1
-    else:
-        raise ValueError(f"nms_static: unsupported device {boxes.device}")
+    score order overlaps it by IoU > ``iou_threshold``: the stable descending sort,
+    then :func:`nms_sorted_segments` on one segment (kernel N1 on CUDA tensors), its
+    positions mapped back to the original indices."""
+    _, order = sort_desc(scores)
+    (pos,) = nms_sorted_segments(boxes[order], scores[order], [boxes.shape[0]],
+                                 iou_threshold, score_threshold, [max_outputs])
+    idx = torch.where(pos >= 0, order[pos.clamp(min=0)], pos)
     return idx, idx >= 0
 
 

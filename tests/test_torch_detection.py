@@ -5,7 +5,11 @@ card).
 
 NMS indices are exact, ties included: both order by a stable descending sort. IoU is
 the same float32 arithmetic (1e-6); RoIAlign averages its samples in another order
-(1e-5, tests/test_detection.py's bar).
+(1e-5, tests/test_detection.py's bar). The presorted, segmented entry
+(``nms_sorted_segments``, which Mask R-CNN calls without a second sort) is held to one
+JAX ``nms_static`` call a segment, which sorts: on the RPN's scores (sigmoid of
+stable-sorted logits, ties among them, -1 for tiny boxes wherever they fall) the kept
+indices are the same.
 """
 import numpy as np
 import pytest
@@ -74,6 +78,48 @@ def test_nms_matches_jax_and_greedy(n, iou_thr, score_thr, max_out, ties):
     kept = _greedy(boxes, scores, iou_thr, score_thr)[:max_out]
     assert idx[valid].tolist() == kept
     assert (idx[~valid] == -1).all()
+
+
+def _rpn_scores(rng, n):
+    """An RPN level's scores as ``maskrcnn._rpn_proposals`` makes them: the sigmoid of
+    logits in stable descending order (repeated logits, and logits past 17 whose
+    sigmoid rounds to 1: ties), -1 for the tiny boxes, which fall anywhere."""
+    logits = np.float32(np.round(rng.randn(n) * 4, 1))
+    logits[rng.rand(n) < 0.1] = 20.0 + rng.rand() * 5
+    logits = np.sort(logits, kind="stable")[::-1].copy()
+    scores = torch.sigmoid(torch.from_numpy(logits))
+    scores[torch.from_numpy(rng.rand(n) < 0.25)] = -1.0
+    return scores.numpy()
+
+
+@pytest.mark.parametrize("lens,iou_thr,score_thr,max_outs", [
+    ((300,), 0.7, -0.5, (300,)),               # one RPN level: the -1 claim
+    ((150, 0, 1, 64, 65), 0.7, -0.5, (150, 0, 1, 40, 65)),  # levels of unequal length
+    ((260,), 0.5, -0.5, (8,)),                 # the class NMS: fewer outputs than kept
+])
+def test_nms_sorted_segments_match_jax_per_segment(lens, iou_thr, score_thr, max_outs):
+    rng = np.random.RandomState(sum(lens))
+    boxes = _boxes(rng, sum(lens))
+    boxes[1::9] = boxes[0::9][: len(boxes[1::9])]  # duplicates
+    scores = np.concatenate([_rpn_scores(rng, n) if n != 1 else np.float32([0.9])
+                             for n in lens])
+    got = det.nms_sorted_segments(torch.from_numpy(boxes), torch.from_numpy(scores), lens,
+                                  iou_thr, score_thr, max_outs)
+    assert len(got) == len(lens)
+    start = 0
+    for n, m, idx in zip(lens, max_outs, got):
+        b, sc = boxes[start:start + n], scores[start:start + n]
+        start += n
+        assert idx.dtype == torch.int64 and idx.shape == (m,)
+        if n == 0:
+            assert (idx == -1).all()
+            continue
+        ok = sc > score_thr  # the valid boxes already stand in JAX's sorted order
+        assert (np.argsort(-sc, kind="stable")[: ok.sum()] == np.flatnonzero(ok)).all()
+        jidx, _ = jdet.nms_static(jnp.asarray(b), jnp.asarray(sc), iou_threshold=iou_thr,
+                                  score_threshold=score_thr, max_outputs=m)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    assert sum(int((i >= 0).sum()) for i in got) > len([n for n in lens if n])
 
 
 def test_topk_stable_is_lax_top_k():

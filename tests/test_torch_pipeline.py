@@ -56,8 +56,15 @@ def _port_scene(sc, models, spec=ModelSpec()):
                                    t("intrinsic"), spec=spec)
 
 
-def test_synthesize_scene_matches_jax(oracle):
-    sc, jmodels, ours = oracle
+@pytest.fixture(scope="module")
+def port_scene(oracle):
+    """The port's scene in the default channel order, made once for the module."""
+    with torch.no_grad():
+        return _port_scene(oracle[0], oracle[2])
+
+
+def _check_scene_matches_jax(oracle, got):
+    sc, jmodels, _ = oracle
     bank_j = jrunner.build_cad_bank([sc["mesh"]] * 2, [sc["kp3d"]] * 2, scale=5.0)
     bboxes = jnp.asarray(sc["bboxes"])
     window = jax.vmap(jcr.square_window_from_bbox)(bboxes)
@@ -68,8 +75,6 @@ def test_synthesize_scene_matches_jax(oracle):
     ref = jrunner.synthesize_scene(jmodels, bank_j, jnp.asarray(sc["frame"]),
                                    jnp.asarray(sc["background"]), per_j,
                                    jnp.asarray(sc["meters"]), jnp.asarray(sc["intrinsic"]))
-    with torch.no_grad():
-        got = _port_scene(sc, ours)
     for name in ("frames_icn", "frames_vunet"):
         a, b = getattr(got, name).numpy(), np.asarray(getattr(ref, name))
         assert a.shape == b.shape == (3, 240, 320, 3)
@@ -82,6 +87,23 @@ def test_synthesize_scene_matches_jax(oracle):
     # rtol 1e-3; atol 1e-6 px^2 for the float32 floor of an exact oracle fit.
     np.testing.assert_allclose(err_t[0], err_j[0], rtol=1e-3, atol=1e-6)
     np.testing.assert_array_equal(got.cad_idx.numpy(), np.asarray(ref.cad_idx))
+
+
+def test_synthesize_scene_matches_jax(oracle, port_scene):
+    _check_scene_matches_jax(oracle, port_scene)
+
+
+def test_synthesize_scene_matches_jax_in_reference_channel_order(oracle, port_scene,
+                                                                monkeypatch):
+    """The same scene with ``reference_channel_order=True`` on both sides (the
+    reference's BGR at the networks' inputs and outputs; the JAX flag is read at trace
+    time and threaded into its jit cache key, so setting it here retraces), with the
+    same bars. The flip must change the frames, or the case would pin nothing."""
+    monkeypatch.setitem(jstages.MODEL_SPEC, "reference_channel_order", True)
+    with torch.no_grad():
+        got = _port_scene(oracle[0], oracle[2], ModelSpec(reference_channel_order=True))
+    _check_scene_matches_jax(oracle, got)
+    assert not torch.equal(got.frames_icn, port_scene.frames_icn)
 
 
 @torch.no_grad()
