@@ -31,11 +31,19 @@ card and the CPU, one device kernel an N3 call (profiler), N2's times beside
 ``torch._int_mm`` and cuDNN's bf16 conv as yardsticks, N3's beside the torch
 composition and a copy of its input, the device-time split of one quantized ICN
 forward (N2, N3, the rest), the JAX package's quality bars at full width, then
-``run_scene`` on the bench scene with the tier on.
+``run_scene`` on the bench scene with the tier on. The parallel phase, in a fresh
+process, joins an NCCL group of one rank a card (one rank on one card), builds the
+(data, model=1) mesh and holds ``run_scene_sharded`` on the bench scene against
+``run_scene`` (its profile must show K1's two kernels and K2), ``StreamRunner(mesh=)``
+against the unsharded runner over 4 frames and the full-width ICN step placed on the
+mesh against the unsharded step, times both pairs alternately, and holds K3 at the
+stem's output-channel slice of a model=2 rank against its plain version.
 
     python3 chip_smoke.py                    # every phase, one GPU
     python3 chip_smoke.py --phases k3,train  # a subset (device and build always run)
     python3 chip_smoke.py --phases int8      # the int8 tier, kernels N2 and N3, alone
+    python3 chip_smoke.py --phases parallel  # the 1-rank NCCL mesh: sharded scene, stream
+                                             # runner and ICN step (a fresh process)
     python3 chip_smoke.py --split DIR        # only where the device time goes for the port
                                              # under DIR (an earlier commit, or .): one N1
                                              # and one N3 call, N3 over a quantized scene,
@@ -64,6 +72,7 @@ Any failure raises and exits non-zero. The last line of standard output is
 Longer output (compiler report, profile) goes to ``chiprun_out/``.
 """
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -80,7 +89,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 ALL_PHASES = ("k1", "k2", "k3", "gpu_vs_cpu", "main", "int8", "train", "demo", "n1", "serve",
-              "stream", "multi", "warmup", "web", "inpaint", "maskrcnn", "train_ec")
+              "stream", "multi", "warmup", "web", "inpaint", "maskrcnn", "train_ec", "parallel")
 # Published peaks of one H100 SXM: device memory bytes/s, float32 FLOP/s outside the
 # tensor cores, dense bf16 FLOP/s.
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -3433,6 +3442,268 @@ def _drop_serving_data(ctx):
         shutil.rmtree(ctx["root"], ignore_errors=True)
 
 
+# The parallel phase (the (data, model) mesh on torch.distributed): the sharded scene,
+# the stream runner on a mesh and the ICN train step under data parallelism, in a fresh
+# process with one rank a card (NCCL cannot put two ranks on one card).
+PARALLEL_SCENES = 3  # timed scenes each, sharded and not, alternating
+PARALLEL_STEPS = 3  # timed ICN steps each, after the compared one
+PARALLEL_FRAMES = 4  # frames through the stream runner, on a mesh and not
+K3_MODEL_SLICE = (8, 262, 262, 21, 7, 32)  # K3 at the stem's slice on a model=2 rank
+# Sharded == unsharded frames, the JAX package's bars (tests/test_sharded_inference.py:
+# 112-140): a mean and a share of pixels beyond an atol.
+SHARD_ATOL, SHARD_BAD_FRAC, SHARD_MEAN = 2e-3, 5e-3, 1e-4
+
+
+def _scene_gap(ref, got):
+    """(bit-equal, max |diff|, mean |diff|, share beyond SHARD_ATOL) of two SceneResults'
+    frames, after checking cad_idx equal and pnp_error within 1e-5."""
+    if not torch.equal(ref.cad_idx, got.cad_idx):
+        raise AssertionError(f"cad_idx differ: {ref.cad_idx.tolist()} {got.cad_idx.tolist()}")
+    if not torch.allclose(ref.pnp_error, got.pnp_error, rtol=0, atol=1e-5, equal_nan=True):
+        raise AssertionError(f"pnp_error differ: {ref.pnp_error.tolist()} "
+                             f"{got.pnp_error.tolist()}")
+    d = torch.cat([(a.double() - b.double()).abs().flatten() for a, b in
+                   ((ref.frames_icn, got.frames_icn), (ref.frames_vunet, got.frames_vunet))])
+    equal = all(torch.equal(a, b) for a, b in zip(ref, got) if a.is_floating_point()
+                and a.dim() > 1)
+    return equal, d.max().item(), d.mean().item(), (d > SHARD_ATOL).double().mean().item()
+
+
+def _check_gap(what, gap):
+    equal, dmax, dmean, bad = gap
+    log(f"parallel[{what}]: bit-equal {equal}; max |diff| {dmax:.3e}, mean {dmean:.3e}, share "
+        f"beyond {SHARD_ATOL} {bad:.3e} (bars: mean {SHARD_MEAN}, share {SHARD_BAD_FRAC})")
+    if not (dmean < SHARD_MEAN and bad < SHARD_BAD_FRAC):
+        raise AssertionError(f"parallel[{what}]: sharded and unsharded results differ")
+
+
+class _Counted:
+    """The launches of K1, K2 and K3 made inside ``with counted:`` blocks only, so that
+    the unsharded references run between them are not counted."""
+
+    def __init__(self):
+        self.launches = {"raster": 0, "icn_stem_conv": 0, "conv_small_cin_v2": 0}
+
+    def _read(self):
+        from future_urban_scene_generation_tpu_torch.ops import cuda_conv, cuda_raster
+
+        return (cuda_raster.LAUNCHES, cuda_conv.LAUNCHES, cuda_conv.SMALL_CIN_V2_LAUNCHES)
+
+    def __enter__(self):
+        self._start = self._read()
+
+    def __exit__(self, *exc):
+        for key, a, b in zip(self.launches, self._start, self._read()):
+            self.launches[key] += b - a
+
+
+def _parallel_scene(sc, mesh, counted, device):
+    """run_scene_sharded on the bench scene against run_scene: equal, timed, profiled."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from future_urban_scene_generation_tpu_torch.pipeline import runner
+
+    args = (sc.models, sc.cad_bank, sc.frame, sc.background, sc.bboxes, sc.meters, sc.intrinsic)
+    ref = runner.run_scene(*args, spec=sc.spec)
+    with counted:
+        got = runner.run_scene_sharded(*args, mesh, spec=sc.spec)
+    torch.cuda.synchronize()
+    _check_gap("scene", _scene_gap(ref, got))
+    times = {"run_scene": [], "run_scene_sharded": []}
+    for _ in range(PARALLEL_SCENES):
+        for name in times:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            if name == "run_scene":
+                runner.run_scene(*args, spec=sc.spec)
+            else:
+                with counted:
+                    runner.run_scene_sharded(*args, mesh, spec=sc.spec)
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end))
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with counted:
+            runner.run_scene_sharded(*args, mesh, spec=sc.spec)
+        torch.cuda.synchronize()
+    rows = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    found = {tag: sum(n for k, n in rows.items() if tag in k) for tag in
+             ("raster_setup_kernel", "raster_tiles_kernel", "conv_wgmma_kernel", "nccl")}
+    log(f"parallel[profile]: device rows of one sharded scene by kernel: {found}")
+    if not all(found[k] for k in ("raster_setup_kernel", "raster_tiles_kernel",
+                                  "conv_wgmma_kernel")):
+        raise AssertionError(f"parallel: the sharded scene did not run K1's two kernels and "
+                             f"K2 on the card: {found}")
+    return times
+
+
+def _parallel_stream(sc, mesh, counted, device):
+    """The same frames through StreamRunner(mesh=) and StreamRunner: the same results."""
+    from future_urban_scene_generation_tpu_torch.pipeline import streaming
+
+    rng = np.random.RandomState(7)
+    base = sc.frame.cpu().numpy()
+    frames = [np.uint8(np.clip(base + rng.rand(*base.shape) * 0.05, 0, 1) * 255)
+              for _ in range(PARALLEL_FRAMES)]
+    boxes, meters = sc.bboxes.cpu().numpy(), sc.meters.cpu().numpy()
+    out = {}
+    for key in (None, mesh):
+        stream = streaming.StreamRunner(sc.models, sc.cad_bank, sc.intrinsic.cpu().numpy(),
+                                        tuple(base.shape[:2]), n_vehicles=len(boxes),
+                                        spec=sc.spec, depth=2, mesh=key)
+        res = []
+        with counted if key is not None else contextlib.nullcontext():
+            for f in frames:
+                r = stream.submit(f, boxes, meters)
+                if r is not None:
+                    res.append(r)
+            res.extend(stream.flush())
+        torch.cuda.synchronize()
+        out[key is not None] = res
+    if not len(out[True]) == len(out[False]) == PARALLEL_FRAMES:
+        raise AssertionError(f"parallel[stream]: {len(out[True])} / {len(out[False])} results")
+    worst = max((_scene_gap(a, b) for a, b in zip(out[False], out[True])),
+                key=lambda g: (g[3], g[2]))
+    _check_gap(f"stream, {PARALLEL_FRAMES} frames, worst", worst)
+
+
+def _parallel_step(mesh, counted, device, batch=8, hw=256):
+    """The full-width ICN step (batch 8, 256^2, float32) placed on the mesh against the
+    unsharded step from the same seed: l_g within 1e-3 (tests/test_parallel_training.py:
+    82); then both timed, alternating."""
+    from future_urban_scene_generation_tpu_torch.parallel import training as ptraining
+    from future_urban_scene_generation_tpu_torch.pipeline import training
+
+    trainer = training.ICNTrainer(lr=1e-3)
+    rng = np.random.RandomState(3)
+    x = torch.as_tensor(rng.rand(batch, hw, hw, 21).astype(np.float32) * 2 - 1, device=device)
+    y = torch.as_tensor(rng.rand(batch, hw, hw, 3).astype(np.float32) * 2 - 1, device=device)
+    plain = trainer.init(torch.Generator().manual_seed(0), device=device)
+    sharded = ptraining.shard_state(trainer.init(torch.Generator().manual_seed(0),
+                                                 device=device), mesh)
+
+    def step(name):
+        if name == "train_step":
+            return trainer.train_step(plain, x, y)[1]
+        with counted:
+            return ptraining.sharded_train_step(trainer, sharded, x, y)[1]
+
+    first = {name: {k: float(v) for k, v in step(name).items()}
+             for name in ("train_step", "sharded_train_step")}
+    gap = abs(first["train_step"]["l_g"] - first["sharded_train_step"]["l_g"])
+    log(f"parallel[step]: losses of the first step, unsharded {first['train_step']}, "
+        f"sharded {first['sharded_train_step']}; |l_g - l_g'| {gap:.3e} (bar 1e-3)")
+    if not gap < 1e-3:
+        raise AssertionError("parallel[step]: the sharded step's l_g strays from the unsharded")
+    times = {"train_step": [], "sharded_train_step": []}
+    for _ in range(PARALLEL_STEPS):
+        for name in times:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(name)
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return times
+
+
+def _k3_model_slice(device):
+    """K3 at the ICN stem's output-channel slice on a model=2 rank (O = 32), float32
+    and bfloat16, against its float64 plain version (phase k3's tolerances)."""
+    from future_urban_scene_generation_tpu_torch.ops import cuda_conv
+
+    for dtype in (torch.float32, torch.bfloat16):
+        x, kern = _small_cin_inputs(K3_MODEL_SLICE, device, dtype, seed=50)
+        _poison_shared_memory(cuda_conv.conv_small_cin_v2, (x, kern))
+        got = cuda_conv.conv_small_cin_v2(x, kern)
+        ref = cuda_conv.conv_small_cin_plain(x.double(), kern.double())
+        torch.cuda.synchronize()
+        err, tol32, ratio16 = _conv_errors(got, ref)
+        ok = err <= tol32 if dtype == torch.float32 else ratio16 <= 1.0
+        log(f"parallel[k3 {K3_MODEL_SLICE} {dtype}]: max abs err {err:.3e} (f32 tol "
+            f"{tol32:.3e}; bf16 worst ratio to its bound {ratio16:.3f}) -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K3 disagrees with its plain version at {K3_MODEL_SLICE}")
+
+
+def _parallel_rank(rank, world, port, queue=None):
+    """One rank of the parallel phase: joins an NCCL group of ``world`` ranks, one card
+    each, runs every check on the mesh (data=world, model=1), and leaves the group."""
+    import torch.distributed as dist
+
+    from future_urban_scene_generation_tpu_torch.parallel import mesh as pmesh
+    from future_urban_scene_generation_tpu_torch.pipeline import synthetic
+    from future_urban_scene_generation_tpu_torch.spec import SERVING_SPEC
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = "cuda"
+    pmesh.init_distributed(f"localhost:{port}", world_size=world, rank=rank, device_type="cuda")
+    try:
+        mesh = pmesh.make_mesh(data=-1, model=1, device_type="cuda")
+        log(f"parallel: rank {rank} of {world} on cuda:{rank}, mesh {mesh}")
+        counted = _Counted()
+        sc = synthetic.make_bench_scene(V=4, hw=(1080, 1920), t_steps=6, device=device,
+                                        spec=SERVING_SPEC)
+        scene_ms = _parallel_scene(sc, mesh, counted, device)
+        _parallel_stream(sc, mesh, counted, device)
+        del sc
+        torch.cuda.empty_cache()
+        step_ms = _parallel_step(mesh, counted, device)
+        _k3_model_slice(device)
+        out = {"world": world, "launches": counted.launches,
+               **{f"{k}_ms": v for k, v in {**scene_ms, **step_ms}.items()}}
+    finally:
+        dist.destroy_process_group()
+    if queue is not None:
+        queue.put((rank, out))
+    return out
+
+
+def parallel_main():
+    """The parallel phase's body (``--parallel``): one rank on the one card, or a rank
+    a card by spawn on up to four (the bench scene's V=4 must split over 'data')."""
+    import socket
+
+    world = max(n for n in (1, 2, 4) if n <= torch.cuda.device_count())
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    if world == 1:
+        return _parallel_rank(0, 1, port)
+    import torch.multiprocessing as mp
+
+    queue = mp.get_context("spawn").SimpleQueue()
+    mp.spawn(_parallel_rank, args=(world, port, queue), nprocs=world)
+    return dict(queue.get() for _ in range(world))[0]
+
+
+def phase_parallel(card):
+    """``parallel_main`` in a fresh process of this script, so that no other phase sees
+    a process group; returns the launches of K1, K2 and K3 on its sharded path."""
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--parallel"],
+                         capture_output=True, text=True, timeout=900, cwd=ROOT)
+    for line in res.stdout.splitlines()[:-1]:
+        log(line)
+    if res.returncode != 0:
+        raise AssertionError(f"parallel phase failed ({res.returncode}):\n{res.stderr[-3000:]}")
+    out = json.loads(res.stdout.splitlines()[-1])
+    med = {k: statistics.median(v) for k, v in out.items() if k.endswith("_ms")}
+    log(f"parallel: {out['world']} rank(s), mesh (data={out['world']}, model=1); medians (ms) "
+        f"run_scene {med['run_scene_ms']:.2f}, run_scene_sharded {med['run_scene_sharded_ms']:.2f}, "
+        f"train_step {med['train_step_ms']:.2f}, sharded_train_step "
+        f"{med['sharded_train_step_ms']:.2f}; all {json.dumps({k: [round(t, 2) for t in v] for k, v in out.items() if k.endswith('_ms')})} "
+        f"({card})")
+    if min(out["launches"].values()) <= 0:
+        raise AssertionError(f"parallel: a kernel of the sharded path never launched: "
+                             f"{out['launches']}")
+    log(f"parallel: launches on the sharded path (scenes, stream, steps): {out['launches']}")
+    return out["launches"]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -3444,7 +3715,16 @@ def main():
     ap.add_argument("--launch-checks", action="store_true",
                     help="only the profiled one-kernel-a-call checks of N1 and N3 (run by "
                          "the n1 and int8 phases in a fresh process)")
+    ap.add_argument("--parallel", action="store_true",
+                    help="only the parallel phase's checks (run by that phase in a fresh "
+                         "process)")
     args = ap.parse_args()
+    if args.parallel:
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: CUDA is not available")
+        sys.path.insert(0, ROOT)
+        print(json.dumps(parallel_main()), flush=True)
+        return
     if args.launch_checks:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: CUDA is not available")
@@ -3513,6 +3793,8 @@ def main():
         phase_warmup(smi)
     if "train_ec" in phases:
         phase_train_ec(device, smi, args.profile)
+    if "parallel" in phases:
+        phase_parallel(smi)
     log(f"phases {phases} passed in {time.perf_counter() - t_start:.1f} s after the build")
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)

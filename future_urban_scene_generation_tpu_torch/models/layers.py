@@ -437,14 +437,20 @@ class WarpLearnLayerNorm(nn.Module):
         self.beta = nn.Parameter(torch.zeros(num_features))
 
     def forward(self, x):
+        return self.affine(self.normalize(x), self.gamma, self.beta)
+
+    def normalize(self, x):
         n = x[0].numel()
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         mean = x32.mean(dim=(1, 2, 3), keepdim=True)
         m2 = (x32 * x32).mean(dim=(1, 2, 3), keepdim=True)
         var = torch.clamp(m2 - mean * mean, min=0.0) * (n / max(n - 1, 1))
         scale = 1.0 / (torch.sqrt(var) + self.eps)
-        xn = (x - mean.to(x.dtype)) * scale.to(x.dtype)
-        return xn * self.gamma.to(x.dtype) + self.beta.to(x.dtype)
+        return (x - mean.to(x.dtype)) * scale.to(x.dtype)
+
+    @staticmethod
+    def affine(xn, gamma, beta):
+        return xn * gamma.to(xn.dtype) + beta.to(xn.dtype)
 
 
 def depth_to_space(x, block: int = 2):

@@ -21,6 +21,7 @@ from future_urban_scene_generation_tpu_torch.geometry.rotations import (
     z_rot,
 )
 from future_urban_scene_generation_tpu_torch.ops import crop as cr
+from future_urban_scene_generation_tpu_torch.parallel import mesh as pmesh
 from future_urban_scene_generation_tpu_torch.pipeline import stages
 from future_urban_scene_generation_tpu_torch.pipeline.stages import CadBank, Models, Perception
 from future_urban_scene_generation_tpu_torch.render import visibility as vis
@@ -70,6 +71,15 @@ def synthesize_scene(models: Models, cad_bank: CadBank, frame, background,
                      spec: ModelSpec, vis_res: int = VIS_RES) -> SceneResult:
     """Everything after perception (which may be oracle-injected). ``background``
     is (H, W, 3), or (S, H, W, 3) per step."""
+    cad_idx, geom, icn, vun = _generate_vehicles(models, cad_bank, frame, perception,
+                                                 meter_coords, intrinsic, spec, vis_res)
+    return composite(background, geom, icn, vun, cad_idx, spec=spec)
+
+
+def _generate_vehicles(models, cad_bank, frame, perception, meter_coords, intrinsic, spec,
+                       vis_res):
+    """The scene's per-vehicle stages: the clamped ``cad_idx``, the geometry and both
+    generators' crops, for the vehicles of ``perception``."""
     # A classifier head wider than the bank (the 10-way head over the service's
     # single procedural CAD) may name a CAD the bank lacks: take the last one, as
     # the JAX package's clamping gather does.
@@ -78,7 +88,7 @@ def synthesize_scene(models: Models, cad_bank: CadBank, frame, background,
     geom = scene_geometry(cad_bank, frame, perception, meter_coords, intrinsic, spec=spec,
                           vis_res=vis_res)
     icn, vun = generate(models, frame, geom, spec=spec)
-    return composite(background, geom, icn, vun, perception.cad_idx, spec=spec)
+    return perception.cad_idx, geom, icn, vun
 
 
 def synthesize_scene_staged(models: Models, cad_bank: CadBank, frame, background,
@@ -170,9 +180,10 @@ def generate(models: Models, frame, geom: SceneGeometry, *, spec: ModelSpec):
 @torch.no_grad()
 def composite(background, geom: SceneGeometry, icn, vun, cad_idx, *,
               spec: ModelSpec) -> SceneResult:
-    """The fault barrier, then both branches composited into the background."""
-    v = geom.central_lab.shape[0]
-    s = geom.sketches.shape[0] // v
+    """The fault barrier, then both branches composited into the background. Of
+    ``geom`` it reads ``veh_masks``, ``windows`` and ``pnp_error`` only."""
+    v = geom.pnp_error.shape[0]
+    s = geom.veh_masks.shape[0] // v
     icn = icn.reshape(v, s, *icn.shape[1:])
     vun = vun.reshape(v, s, *vun.shape[1:])
     # Fault barrier: a vehicle-step with non-finite output, a degenerate window or
@@ -198,6 +209,69 @@ def composite(background, geom: SceneGeometry, icn, vun, cad_idx, *,
             torch.cat([masks.transpose(0, 1), masks.transpose(0, 1)], dim=0),
         )
     return SceneResult(frames[:s], frames[s:], geom.pnp_error, cad_idx)
+
+
+@torch.no_grad()
+def synthesize_scene_sharded(models: Models, cad_bank: CadBank, frame, background,
+                             perception: Perception, meter_coords, intrinsic, mesh, *,
+                             spec: ModelSpec, vis_res: int = VIS_RES) -> SceneResult:
+    """:func:`synthesize_scene` with the vehicle axis sharded over ``mesh``'s 'data'
+    axis (JAX runner.py:352), SPMD: every rank of the mesh calls it with the whole
+    scene. Each rank takes its contiguous V / data vehicles of ``perception`` and
+    ``meter_coords`` (a rank on another 'model' coordinate takes the same ones), runs
+    :func:`scene_geometry` and :func:`generate` on them with the port's kernels, then
+    all-gathers over 'data', in rank order, what :func:`composite` needs (the
+    generators' crops, the vehicle masks, the windows, ``pnp_error``, ``cad_idx``)
+    and composites all V, so every rank returns the replicated result
+    :func:`synthesize_scene` gives. Frame, background, weights and the CAD bank are
+    replicated (each rank holds them). V must divide the 'data' axis size."""
+    rows = _vehicle_rows(meter_coords.shape[0], mesh)
+    local = Perception(perception.cad_idx[rows], perception.kp_frame[rows],
+                       perception.window.map(lambda f: f[rows]), perception.crop[rows])
+    return _synthesize_shard(models, cad_bank, frame, background, local, meter_coords[rows],
+                             intrinsic, mesh, spec, vis_res)
+
+
+@torch.no_grad()
+def run_scene_sharded(models: Models, cad_bank: CadBank, frame, background, bboxes,
+                      meter_coords, intrinsic, mesh, *, spec: ModelSpec,
+                      vis_res: int = VIS_RES) -> SceneResult:
+    """:func:`run_scene` with the vehicle axis sharded over ``mesh``'s 'data' axis
+    (JAX runner.py:401): each rank perceives its own V / data vehicles of ``bboxes``
+    and goes on as :func:`synthesize_scene_sharded`. Streams x devices: give each
+    camera stream its own mesh (``streaming.MultiStreamRunner(meshes=)``); no
+    collective crosses streams."""
+    rows = _vehicle_rows(bboxes.shape[0], mesh)
+    with record_function("fusg.perceive"):
+        perception = stages.perceive(models, spec, frame, bboxes[rows])
+    return _synthesize_shard(models, cad_bank, frame, background, perception,
+                             meter_coords[rows], intrinsic, mesh, spec, vis_res)
+
+
+def _vehicle_rows(v: int, mesh) -> slice:
+    if not torch.distributed.is_initialized():
+        raise RuntimeError("a sharded scene needs an initialized process group "
+                           "(parallel.mesh.init_distributed) and a mesh of it")
+    try:
+        return pmesh.axis_rows(v, mesh, "data")
+    except ValueError as e:
+        raise ValueError(f"{v} vehicles: {e}") from None
+
+
+def _synthesize_shard(models, cad_bank, frame, background, perception, meter_coords,
+                      intrinsic, mesh, spec, vis_res) -> SceneResult:
+    cad_idx, geom, icn, vun = _generate_vehicles(models, cad_bank, frame, perception,
+                                                 meter_coords, intrinsic, spec, vis_res)
+    with record_function("fusg.gather"):
+        def gather(t):
+            return pmesh.gather_axis(t, mesh, "data")
+
+        # composite reads these three of the geometry, now for all V
+        whole = geom._replace(veh_masks=gather(geom.veh_masks),
+                              windows=geom.windows.map(gather),
+                              pnp_error=gather(geom.pnp_error))
+        icn, vun, cad_idx = gather(icn), gather(vun), gather(cad_idx)
+    return composite(background, whole, icn, vun, cad_idx, spec=spec)
 
 
 def build_cad_bank(meshes, keypoints, scale: float = 5.0, *, device) -> CadBank:

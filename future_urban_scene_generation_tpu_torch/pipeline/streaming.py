@@ -13,7 +13,9 @@ only when the result is drained.
         result = stream.submit(frame, bboxes, meters)  # the oldest finished scene, or None
 
 The runner works on the device its ``cad_bank`` lies on; the caller chose it when
-building the bank and the models.
+building the bank and the models. With a ``mesh`` (``parallel.mesh.make_mesh``) every
+rank of the mesh runs the same runner on the same frames, and each scene shards its
+vehicles over the mesh's 'data' axis (``runner.run_scene_sharded``).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from future_urban_scene_generation_tpu_torch.models import layers
+from future_urban_scene_generation_tpu_torch.parallel import mesh as pmesh
 from future_urban_scene_generation_tpu_torch.pipeline import runner as _runner
 from future_urban_scene_generation_tpu_torch.pipeline import tracking as trk
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
@@ -45,8 +48,14 @@ class StreamRunner:
         n_steps: int = 6,
         vis_res: int = _runner.VIS_RES,
         depth: int = 2,
+        mesh=None,
         inflight_gate=None,
     ):
+        # None: one device; else the vehicle axis shards over the mesh's 'data' axis,
+        # and the fixed vehicle count the runner pads to must split evenly over it.
+        if mesh is not None:
+            pmesh.axis_rows(n_vehicles, mesh, "data")
+        self.mesh = mesh
         self.models = models
         self.cad_bank = cad_bank
         self.device = cad_bank.vertices.device
@@ -99,11 +108,13 @@ class StreamRunner:
         if self._gate is not None:
             self._gate.acquire()  # released by _drain_one, or here if dispatch fails
         try:
-            result = _runner.run_scene(
-                self.models, self.cad_bank, frame_d, bg_d,
-                self._upload(b, self.device), self._upload(m, self.device), self.intrinsic,
-                spec=self.spec, vis_res=self.vis_res,
-            )
+            args = (self.models, self.cad_bank, frame_d, bg_d, self._upload(b, self.device),
+                    self._upload(m, self.device), self.intrinsic)
+            if self.mesh is not None:
+                result = _runner.run_scene_sharded(*args, self.mesh, spec=self.spec,
+                                                   vis_res=self.vis_res)
+            else:
+                result = _runner.run_scene(*args, spec=self.spec, vis_res=self.vis_res)
             event = None
             if self.device.type == "cuda":
                 event = torch.cuda.Event()
@@ -318,36 +329,60 @@ class MultiStreamRunner:
 
     An exception in one worker is kept and raised by that stream's next
     ``submit_frame`` and by ``flush``; frames queued behind it are dropped.
+
+    ``meshes`` (optional, one per stream, each ``parallel.mesh.make_mesh``'s): stream
+    i shards its scenes' vehicles over ``meshes[i]`` (``runner.run_scene_sharded``);
+    disjoint meshes put the streams on disjoint devices. In threaded mode the meshes
+    must be disjoint (``ValueError`` otherwise): each worker runs its stream's
+    collectives from its own thread, so two streams on one rank would reach their
+    shared ranks' collectives in an order each rank's thread scheduling picks, and
+    could pair one stream's gather with another's. The JAX package is
+    single-controller, one process sees every stream; under torch's one process per
+    device a rank builds only the streams whose mesh holds it (a None mesh: every
+    rank, unsharded), ``streams[i]`` is None for the others, and ``submit_frame`` to
+    such a stream raises ``ValueError``. Every rank of a stream's mesh submits that
+    stream's frames.
     """
 
     def __init__(self, models, cad_bank, intrinsic, frame_hw, n_vehicles, *,
                  n_streams: int, make_detector, inv_homographies=None,
-                 threaded: bool = False, max_inflight: Optional[int] = None,
+                 threaded: bool = False, meshes=None, max_inflight: Optional[int] = None,
                  on_result=None, **kwargs):
         if inv_homographies is None:
             inv_homographies = [None] * n_streams
+        if meshes is None:
+            meshes = [None] * n_streams
+        here = [i for i in range(n_streams) if meshes[i] is None or pmesh.holds_rank(meshes[i])]
         gate = None
         if threaded:
+            owner = {}
+            for i, m in enumerate(meshes):
+                for r in ([] if m is None else m.mesh.flatten().tolist()):
+                    if owner.setdefault(r, i) != i:
+                        raise ValueError(f"threaded streams {owner[r]} and {i} share rank "
+                                         f"{r}: their collectives could pair up across "
+                                         "streams; give them disjoint meshes or threaded=False")
             max_inflight = 6 if max_inflight is None else int(max_inflight)
             gate = threading.BoundedSemaphore(max_inflight)
             kwargs["depth"] = max(1, min(int(kwargs.pop("depth", 2)),
-                                         max_inflight // max(n_streams, 1)))
+                                         max_inflight // max(len(here), 1)))
         self.streams = [
             TrackingStreamRunner(
                 models, cad_bank, intrinsic, frame_hw, n_vehicles,
                 detector=make_detector(i), inv_homography=inv_homographies[i],
-                inflight_gate=gate, **kwargs,
-            )
+                mesh=meshes[i], inflight_gate=gate, **kwargs,
+            ) if i in here else None
             for i in range(n_streams)
         ]
         self.threaded = bool(threaded)
         self.on_result = on_result
         self.results = [[] for _ in range(n_streams)]
         if self.threaded:
-            self._queues = [queue.Queue(maxsize=8) for _ in range(n_streams)]
+            self._queues = [queue.Queue(maxsize=8) if i in here else None
+                            for i in range(n_streams)]
             self._errors: list = [None] * n_streams
             self._workers = []
-            for i in range(n_streams):
+            for i in here:
                 w = threading.Thread(target=self._worker, args=(i,), daemon=True,
                                      name=f"fusg-stream-{i}")
                 w.start()
@@ -377,6 +412,9 @@ class MultiStreamRunner:
         """One streaming step for camera ``stream_idx``; the contract of
         ``TrackingStreamRunner.submit_frame``. Threaded mode: enqueue and return
         ``(None, [])`` (results as the class docstring says)."""
+        if self.streams[stream_idx] is None:
+            raise ValueError(f"stream {stream_idx} is not on rank "
+                             f"{torch.distributed.get_rank()}: its mesh does not hold it")
         if not self.threaded:
             return self.streams[stream_idx].submit_frame(frame, background)
         if self._errors[stream_idx] is not None:
@@ -388,18 +426,19 @@ class MultiStreamRunner:
         """Drain every stream; returns a list of per-stream result lists (threaded
         mode: what the workers accumulated plus the final drain; with ``on_result``
         the final drain goes there too and the lists are empty). The workers stay
-        alive for further submissions."""
+        alive for further submissions. A stream not on this rank gives []."""
         if not self.threaded:
-            return [s.flush() for s in self.streams]
+            return [s.flush() if s is not None else [] for s in self.streams]
         for q in self._queues:
-            q.join()  # barrier: every enqueued frame has been submitted
+            if q is not None:
+                q.join()  # barrier: every enqueued frame has been submitted
         for err in self._errors:
             if err is not None:
                 raise err
         out = []
         for i, s in enumerate(self.streams):
             drained, self.results[i] = self.results[i], []
-            tail = s.flush()
+            tail = s.flush() if s is not None else []
             if self.on_result is not None:
                 for r in tail:
                     self.on_result(i, r)
@@ -413,7 +452,8 @@ class MultiStreamRunner:
         if not self.threaded:
             return
         for q in self._queues:
-            q.put(None)
+            if q is not None:
+                q.put(None)
         for w in self._workers:
             w.join(timeout=30)
         self.threaded = False
@@ -423,7 +463,8 @@ class MultiStreamRunner:
         """Composited frames/s of all streams over ONE wall clock: the drained
         scenes of every stream, from the earliest first submission to the latest
         drain of any stream. This is what a user of the device gets."""
-        live = [s for s in self.streams if s._drained and s._t_last_drain is not None]
+        live = [s for s in self.streams
+                if s is not None and s._drained and s._t_last_drain is not None]
         if not live:
             return 0.0
         frames = sum(s._drained * 2 * s.n_steps for s in live)
@@ -436,4 +477,4 @@ class MultiStreamRunner:
         own ``throughput_fps`` (its own first submit -> last drain window). It equals
         ``aggregate_fps`` only when all windows coincide and overstates it when
         streams start or end at different times."""
-        return sum(s.throughput_fps for s in self.streams)
+        return sum(s.throughput_fps for s in self.streams if s is not None)

@@ -106,6 +106,31 @@ def test_synthesize_scene_matches_jax_in_reference_channel_order(oracle, port_sc
     assert not torch.equal(got.frames_icn, port_scene.frames_icn)
 
 
+def test_synthesize_scene_sharded_matches_jax(oracle, port_scene):
+    """``synthesize_scene_sharded`` on a 1-rank (data, model) mesh of a gloo group over
+    a HashStore, against the JAX ``synthesize_scene`` at the bars above; at one rank
+    it is also the unsharded port scene bit for bit."""
+    import torch.distributed as dist
+
+    from future_urban_scene_generation_tpu_torch.parallel import mesh as pmesh
+
+    sc, _, ours = oracle
+    bank = runner.build_cad_bank([sc["mesh"]] * 2, [sc["kp3d"]] * 2, scale=5.0, device="cpu")
+    t = lambda k: torch.as_tensor(sc[k])  # noqa: E731
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        with torch.no_grad():
+            got = runner.synthesize_scene_sharded(
+                ours, bank, t("frame"), t("background"),
+                synthetic.oracle_perception(sc, device="cpu"), t("meters"), t("intrinsic"),
+                pmesh.make_mesh(device_type="cpu"), spec=ModelSpec())
+    finally:
+        dist.destroy_process_group()
+    _check_scene_matches_jax(oracle, got)
+    for a, b in zip(got, port_scene):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
 @torch.no_grad()
 def test_fault_barrier_drops_bad_vehicle(oracle):
     """The NaN vehicle contributes nothing: the V=2 scene equals the V=1 scene of
