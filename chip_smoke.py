@@ -37,7 +37,14 @@ process, joins an NCCL group of one rank a card (one rank on one card), builds t
 ``run_scene`` (its profile must show K1's two kernels and K2), ``StreamRunner(mesh=)``
 against the unsharded runner over 4 frames and the full-width ICN step placed on the
 mesh against the unsharded step, times both pairs alternately, and holds K3 at the
-stem's output-channel slice of a model=2 rank against its plain version.
+stem's output-channel slice of a model=2 rank against its plain version. The aot phase
+drives ahead-of-time scene programs (pipeline/aot.py, ``torch.export`` with the kernels as
+``fusg::`` operators) as a deploy uses them, each step in a fresh process:
+``cli.warmup --export-aot`` at the serve phase's shape and the service's spec, a restart
+that must find the artifact, holds the restored scene to the live ``run_scene`` (atol
+2e-5), counts the graph's ``fusg::`` nodes and the kernels' launches a restored scene and
+times the restart's parts, then the same on the int8 tier; and the dispatcher's cost a
+``fusg::`` call.
 
     python3 chip_smoke.py                    # every phase, one GPU
     python3 chip_smoke.py --phases k3,train  # a subset (device and build always run)
@@ -48,6 +55,9 @@ stem's output-channel slice of a model=2 rank against its plain version.
                                              # under DIR (an earlier commit, or .): one N1
                                              # and one N3 call, N3 over a quantized scene,
                                              # the quantized ICN forward
+    python3 chip_smoke.py --phases aot       # ahead-of-time scene programs: export, restarts
+    python3 chip_smoke.py --scene-times DIR  # only the bench scene's times (serving spec and
+                                             # int8 tier) for the port package under DIR
     python3 chip_smoke.py --profile          # also profile one scene and one EdgeConnect step each
 
 The k1 phase holds K1 and K1' (two CUDA launches a call: triangle setup, tiles) at
@@ -89,7 +99,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 ALL_PHASES = ("k1", "k2", "k3", "gpu_vs_cpu", "main", "int8", "train", "demo", "n1", "serve",
-              "stream", "multi", "warmup", "web", "inpaint", "maskrcnn", "train_ec", "parallel")
+              "stream", "multi", "warmup", "aot", "web", "inpaint", "maskrcnn", "train_ec",
+              "parallel")
 # Published peaks of one H100 SXM: device memory bytes/s, float32 FLOP/s outside the
 # tensor cores, dense bf16 FLOP/s.
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -2556,6 +2567,345 @@ def phase_warmup(card):
         raise AssertionError(f"warmup failed: {proc.stderr[-2000:]}")
 
 
+AOT_V = 4  # vehicles of the aot phase's scenes (the serve phase's request)
+AOT_VIS_RES = 192  # the service's and cli.warmup's default
+
+
+def _fusg_nodes(module):
+    """Counts of the ``fusg::`` operator nodes in a restored program's graph, and the
+    graph's node count."""
+    counts = {}
+    for node in module.graph.nodes:
+        name = str(node.target)
+        if node.op == "call_function" and name.startswith("fusg."):
+            op = name.split(".")[1]
+            counts[op] = counts.get(op, 0) + 1
+    return counts, len(module.graph.nodes)
+
+
+def _dispatch_cost(device, calls=200):
+    """The ``torch.library`` dispatcher's cost a call: each ``fusg::`` operator against
+    its registered implementation called as a plain function, on the same small inputs:
+    the host's clock over ``calls`` calls queued without a synchronization (the host's
+    time a call; the card's work is the same on both sides). Returns {op: (us a call
+    through the op, us direct)}, the lesser of two runs each."""
+    from future_urban_scene_generation_tpu_torch.geometry import pnp
+    from future_urban_scene_generation_tpu_torch.ops import cuda_conv, cuda_raster
+
+    g = torch.Generator().manual_seed(9)
+    screen = torch.rand(2, 3, 3, 64, generator=g) * 30.0
+    screen[:, :, 2] += 1.0
+    dev = lambda t: t.to(device)  # noqa: E731
+    cases = {
+        "rasterize_corners": (cuda_raster._rasterize_corners_op, cuda_raster._rasterize_corners_cuda,
+                              (dev(screen), dev(torch.rand(2, 3, 3, 64, generator=g)), [16, 16],
+                               None)),
+        "icn_stem_conv": (cuda_conv._icn_stem_conv_op, cuda_conv._icn_stem_conv_cuda,
+                          (dev(torch.rand(1, 16, 16, 3, generator=g)),
+                           dev(torch.rand(1, 16, 16, 3, generator=g)),
+                           dev(torch.rand(1, 5, 16, 16, 3, generator=g)),
+                           dev(torch.rand(7, 7, 21, 64, generator=g)), 3, 1)),
+        "conv_int8_quantized": (cuda_conv._conv_int8_quantized_op,
+                                cuda_conv._conv_int8_quantized_cuda,
+                                (dev(torch.randn(1, 8, 8, 32, generator=g)),
+                                 dev(torch.randn(3, 3, 32, 32, generator=g)), torch.float32,
+                                 False, 1, 1, 1, 1, 1)),
+        "pnp_jacobian": (pnp.pnp_jacobian, lambda *a: pnp._JAC_FN(*a),
+                         (dev(torch.randn(16, 6, generator=g)),
+                          dev(torch.randn(16, 12, 3, generator=g)),
+                          dev(torch.randn(16, 12, 2, generator=g)),
+                          dev(torch.tensor([300.0, 300.0])), dev(torch.tensor([64.0, 48.0])))),
+    }
+    out = {}
+    for name, (op, direct, args) in cases.items():
+        times = {}
+        for label, fn in (("op", op), ("direct", direct), ("direct", direct), ("op", op)):
+            for _ in range(5):
+                fn(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn(*args)
+            host = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            times.setdefault(label, []).append(host / calls * 1e6)
+        out[name] = (min(times["op"]), min(times["direct"]))
+    return out
+
+
+def _aot_inputs(device, hw, v, steps):
+    """``cli.warmup``'s seeded arguments of one bucket but the networks: (cad_bank,
+    frame, background, bboxes, meters, intrinsic)."""
+    from future_urban_scene_generation_tpu_torch.cli import warmup
+
+    cad_bank, frame, background, intrinsic, k_mat = warmup.seeded_scene(hw, device)
+    bboxes, _, meters = (torch.as_tensor(a).to(device) for a in warmup.bucket_inputs(
+        v, steps, k_mat, cad_bank.keypoints3d[0].cpu()))
+    return cad_bank, frame, background, bboxes, meters, intrinsic
+
+
+def aot_export_int8(directory, device="cuda", hw=SERVE_HW, v=AOT_V, steps=6):
+    """The aot phase's int8-tier export (``--aot-export-int8``, a fresh process beside
+    the CLI's export): ``cli.warmup``'s arguments and networks, the service's spec with
+    ``quantized_convs``. Returns the export's seconds, MB and file name."""
+    from future_urban_scene_generation_tpu_torch.pipeline import aot, stages
+    from future_urban_scene_generation_tpu_torch.spec import ModelSpec
+
+    spec = ModelSpec(quantized_convs=True)
+    models = stages.Models.build(spec, torch.Generator().manual_seed(0), device=device)
+    args = (models, *_aot_inputs(device, hw, v, steps))
+    t0 = time.perf_counter()
+    path = aot.export_run_scene(*args, spec=spec, vis_res=AOT_VIS_RES, directory=directory)
+    return {"seconds": time.perf_counter() - t0, "mb": path.stat().st_size / 1e6,
+            "name": path.name}
+
+
+def aot_restart(directory, quantized: bool, t_spawn: float, device="cuda", hw=SERVE_HW,
+                v=AOT_V, steps=6):
+    """The aot phase's fresh process (``--aot-restart``): a restart as a service makes
+    it, on the arguments ``cli.warmup`` exported (its seeded scene, the service's spec,
+    ``quantized`` the int8 tier). Times each part on the wall clock around
+    ``torch.cuda.synchronize()``: process start to the port imported (``t_spawn`` is the
+    parent's clock at the spawn), the CUDA context, the kernel library (on disk), the
+    networks' build, the artifact's lookup (``torch.export.load`` and ``.module()``),
+    then two restored scenes and two live ``run_scene`` scenes. Holds the restored
+    result to the live one (atol 2e-5, ``cad_idx`` equal), counts the graph's ``fusg::``
+    nodes and the kernels' launches a scene on both paths. Returns the record."""
+    from future_urban_scene_generation_tpu_torch.ops import _kernels, cuda_conv, cuda_raster
+    from future_urban_scene_generation_tpu_torch.pipeline import aot, runner, stages
+    from future_urban_scene_generation_tpu_torch.spec import ModelSpec
+
+    split = {"import": time.time() - t_spawn}
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        split[name] = time.perf_counter() - t0
+        return out
+
+    timed("context", lambda: torch.zeros(1, device=device))
+    if device == "cuda":
+        timed("kernel_library", _kernels.load)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = ModelSpec(quantized_convs=quantized)  # the service's: config.model_spec()
+    models = timed("models_build", lambda: stages.Models.build(
+        spec, torch.Generator().manual_seed(0), device=device))
+    args = (models, *_aot_inputs(device, hw, v, steps))
+    run = timed("artifact_load", lambda: aot.lookup_run_scene(
+        *args, spec=spec, vis_res=AOT_VIS_RES, directory=directory))
+    if run is None:
+        raise AssertionError(f"aot: no artifact for the {'int8' if quantized else 'service'} "
+                             f"spec under {directory}: {os.listdir(directory)}")
+    fusg, nodes = _fusg_nodes(run.module)
+
+    def counters():
+        return {"rasterize_corners": cuda_raster.LAUNCHES, "icn_stem_conv": cuda_conv.LAUNCHES,
+                "conv_int8": cuda_conv.INT8_LAUNCHES, "quant_int8": cuda_conv.QUANT_LAUNCHES}
+
+    def live(*a):
+        return runner.run_scene(*a, spec=spec, vis_res=AOT_VIS_RES)
+
+    results, launches = {}, {}
+    for label, fn in (("restored", run), ("live", live)):
+        for i in (1, 2):
+            before = counters()
+            results[label] = timed(f"{label}_scene_{i}", lambda: fn(*args))
+            launches.setdefault(label, []).append(
+                {k: n - before[k] for k, n in counters().items()})
+    got, want = results["restored"], results["live"]
+    err = {f: float((a.float() - b.float()).abs().max()) for f, a, b in
+           zip(runner.SceneResult._fields, got, want) if f != "cad_idx"}
+    record = {"quantized": quantized, "split": split, "nodes": nodes, "fusg": fusg,
+              "launches": launches, "max_abs_err": err,
+              "cad_idx_equal": bool(torch.equal(got.cad_idx, want.cad_idx)),
+              "shapes": [list(t.shape) for t in got]}
+    return record
+
+
+def _aot_spawn(*flags):
+    """A fresh process of this script with the aot phase's ``flags``."""
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), *flags],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+
+
+def _aot_result(proc, what, timeout=900):
+    """The JSON record on the last line of ``proc``'s output; raises if it failed."""
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"aot: {what} failed ({proc.returncode}):\n{err[-3000:]}")
+    return json.loads(out.splitlines()[-1])
+
+
+def _aot_restart(directory, quantized):
+    flags = ["--aot-restart", directory, "--t-spawn", repr(time.time())]
+    return _aot_spawn(*flags, *(["--aot-int8"] if quantized else []))
+
+
+def _aot_restart_checked(proc, quantized, card):
+    rec = _aot_result(proc, "the restart process")
+    tier = "int8 tier" if quantized else "service spec"
+    split = ", ".join(f"{k} {v:.3f}" for k, v in rec["split"].items())
+    log(f"aot: restart ({tier}, V={AOT_V}, {SERVE_HW[0]}x{SERVE_HW[1]}): seconds {split} "
+        f"({card})")
+    log(f"aot: restored graph ({tier}): {rec['nodes']} nodes, fusg:: nodes {rec['fusg']}; "
+        f"launches a scene restored {rec['launches']['restored']}, live "
+        f"{rec['launches']['live']}; max abs err restored vs live {rec['max_abs_err']}, "
+        f"cad_idx equal {rec['cad_idx_equal']}")
+    if max(rec["max_abs_err"].values()) > 2e-5 or not rec["cad_idx_equal"]:
+        raise AssertionError(f"aot: the restored scene ({tier}) differs from the live one")
+    fusg = rec["fusg"]
+    want = {"rasterize_corners": 1, "icn_stem_conv": 1, "pnp_jacobian": fusg.get("pnp_jacobian")}
+    if quantized:
+        want["conv_int8_quantized"] = fusg.get("conv_int8_quantized", 0)
+        if want["conv_int8_quantized"] <= 0:
+            raise AssertionError(f"aot: the int8 tier's graph holds no quantized conv: {fusg}")
+    if fusg != want or not fusg["pnp_jacobian"]:
+        raise AssertionError(f"aot: the restored graph's operators {fusg} are not {want}")
+    n_int8 = fusg.get("conv_int8_quantized", 0)
+    per_scene = {"rasterize_corners": 1, "icn_stem_conv": 1, "conv_int8": n_int8,
+                 "quant_int8": n_int8}
+    for label in ("restored", "live"):
+        for got in rec["launches"][label]:
+            if got != per_scene:
+                raise AssertionError(f"aot: {label} scene launched {got}, not {per_scene}")
+    return rec
+
+
+def phase_aot(card):
+    """Ahead-of-time scene programs (pipeline/aot.py) as a deploy uses them, each step in
+    a fresh process: ``cli.warmup --export-aot`` at the serve phase's shape (720x1280,
+    V=4, 6 steps) and the service's spec exports, restores and runs the artifact, while
+    a second process exports the int8 tier (both trace on the host, one core each); a
+    restart of each tier restores its artifact (a hit) and holds it to the live
+    ``run_scene``, the int8 tier's beside the CLI's restore, the service spec's alone
+    afterwards: its times of the restart's parts are the record. Also the dispatcher's
+    cost a ``fusg::`` call. Returns the records."""
+    directory = os.path.join(OUT_DIR, "aot_artifacts")
+    shutil.rmtree(directory, ignore_errors=True)
+    cost = _dispatch_cost("cuda")
+    log("aot: dispatcher cost a call, host us through the op vs its implementation called "
+        "directly (min of two runs of 200 queued calls): " + ", ".join(
+            f"{k} {a:.1f} vs {b:.1f} (+{a - b:.1f})" for k, (a, b) in cost.items()) + f" ({card})")
+    argv = [sys.executable, "-m", "future_urban_scene_generation_tpu_torch.cli.warmup",
+            "--frame-hw", *(str(n) for n in SERVE_HW), "--vehicles", str(AOT_V),
+            "--generator-dtype", "float32", "--warp-plane-res", "256", "--export-aot",
+            directory]
+    procs = []
+    try:
+        # The two exports trace side by side (one core each); the int8 tier's restart
+        # starts when its artifact is there, beside the CLI's own restore; the service
+        # spec's restart, whose split is the record, runs alone after both.
+        procs.append(_aot_spawn("--aot-export-int8", directory))
+        t0 = time.perf_counter()
+        procs.append(subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT)))
+        int8_rec = _aot_result(procs[0], "the int8 tier's export")
+        log(f"aot: int8 tier exported beside the CLI in {int8_rec['seconds']:.1f} s "
+            f"({int8_rec['mb']:.1f} MB, {int8_rec['name']}) ({card})")
+        procs.append(_aot_restart(directory, True))
+        out, err = procs[1].communicate(timeout=900)
+        secs = time.perf_counter() - t0
+        said = out.strip().splitlines()
+        log(f"aot: export process exit {procs[1].returncode} in {secs:.2f} s (process start "
+            f"to end); it said: {said} ({card})")
+        exported = [re.match(rf"exported V={AOT_V} AOT artifact (\S+) \(([\d.]+) MB\) in "
+                             r"([\d.]+)s", ln) for ln in said]
+        if (procs[1].returncode != 0 or len([m for m in exported if m]) != 1
+                or not any(ln.startswith(f"restored V={AOT_V} AOT artifact") for ln in said)):
+            raise AssertionError(f"aot: the export failed: {err[-2000:]}")
+        int8 = _aot_restart_checked(procs[2], True, card)
+        procs.append(_aot_restart(directory, False))
+        service = _aot_restart_checked(procs[3], False, card)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(directory, ignore_errors=True)  # artifacts of tens of MB stay there
+    return {"dispatch_us": cost, "service": service, "int8": int8, "int8_export": int8_rec}
+
+
+def _direct_routes():
+    """The scene's kernel wrappers and the PnP Jacobian bound straight to the
+    implementations registered under their ``fusg::`` operators (the ``torch.library``
+    dispatcher skipped, as the wrappers called them before the operators existed):
+    {(module, name): replacement}."""
+    from future_urban_scene_generation_tpu_torch.geometry import pnp
+    from future_urban_scene_generation_tpu_torch.ops import cuda_conv, cuda_raster
+
+    def jacobian(*args):
+        with pnp._JACFWD_LOCK:
+            return pnp._JAC_FN(*args)
+
+    return {
+        (cuda_raster, "rasterize_corners"): lambda screen, colors, out_hw, cull=None: (
+            cuda_raster._rasterize_corners_cuda(screen, colors, list(out_hw), cull)),
+        (cuda_conv, "icn_stem_conv"): lambda sketch, central, planes, kernel, pad=3, s_repeat=1: (
+            cuda_conv._icn_stem_conv_cuda(sketch, central, planes, kernel, pad, s_repeat)),
+        (cuda_conv, "conv_int8_quantized"): lambda x, w, out_dtype, *, flip=False, stride=1, pad_lo=0, pad_hi=0, dilation=1, in_dilation=1: (  # noqa: E501
+            cuda_conv._conv_int8_quantized_cuda(x, w, out_dtype, flip, stride, pad_lo, pad_hi,
+                                                dilation, in_dilation)),
+        (pnp, "pnp_jacobian"): jacobian,
+    }
+
+
+@contextlib.contextmanager
+def _routed(direct: bool):
+    """Inside the block, the scene reaches its kernels directly (``direct``) or through
+    the ``fusg::`` operators (the wrappers as they are)."""
+    routes = _direct_routes() if direct else {}
+    saved = {key: getattr(*key) for key in routes}
+    for (module, name), fn in routes.items():
+        setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        for (module, name), fn in saved.items():
+            setattr(module, name, fn)
+
+
+def scene_times(device="cuda", scenes=3):
+    """The main phase's bench scene (1080p, V=4, 6 steps, the serving spec) and the same
+    scene on the int8 tier, ``scenes`` timed calls each after a cold one, by CUDA events,
+    for the port package first on ``sys.path`` (this tree's, or an earlier one's). Where
+    the package has the ``fusg::`` operators, the calls alternate between the operators
+    and the kernels reached directly (``_routed``), ``scenes`` of each, in one process:
+    the dispatcher's cost a scene. Returns {label: [ms, ...]}."""
+    from future_urban_scene_generation_tpu_torch.ops import cuda_conv
+    from future_urban_scene_generation_tpu_torch.pipeline import runner, synthetic
+    from future_urban_scene_generation_tpu_torch.spec import SERVING_SPEC
+
+    has_ops = hasattr(cuda_conv, "_conv_int8_quantized_op")
+    out = {}
+    for label, spec in (("main", SERVING_SPEC),
+                        ("int8", SERVING_SPEC.replace(quantized_convs=True))):
+        sc = synthetic.make_bench_scene(V=4, hw=(1080, 1920), t_steps=6, device=device,
+                                        spec=spec)
+
+        def run():
+            return runner.run_scene(sc.models, sc.cad_bank, sc.frame, sc.background,
+                                    sc.bboxes, sc.meters, sc.intrinsic, spec=spec)
+
+        run()
+        if not has_ops:
+            out[label] = [cuda_ms(run, iters=1, warmup=0) for _ in range(scenes)]
+        else:
+            routes = [False, True, True, False] * -(-scenes // 2)
+            for direct in routes[:2 * scenes]:
+                with _routed(direct):
+                    out.setdefault(f"{label}_{'direct' if direct else 'ops'}", []).append(
+                        cuda_ms(run, iters=1, warmup=0))
+        del sc
+    return out
+
+
 def phase_web(device, card, ctx):
     """The web GUI's server over the phases' service, in a thread, asked over a local
     socket: the page, the boxes, an annotated frame, RUN with the four ids, a result.
@@ -3718,7 +4068,44 @@ def main():
     ap.add_argument("--parallel", action="store_true",
                     help="only the parallel phase's checks (run by that phase in a fresh "
                          "process)")
+    ap.add_argument("--aot-restart", metavar="DIR",
+                    help="only the aot phase's restart from the artifacts under DIR (run by "
+                         "that phase in a fresh process)")
+    ap.add_argument("--aot-int8", action="store_true", help="--aot-restart on the int8 tier")
+    ap.add_argument("--aot-export-int8", metavar="DIR",
+                    help="only the aot phase's int8-tier export into DIR (run by that phase "
+                         "in a fresh process)")
+    ap.add_argument("--t-spawn", type=float, default=None,
+                    help="--aot-restart: the parent's time.time() at the spawn")
+    ap.add_argument("--scene-times", metavar="PACKAGE_ROOT",
+                    help="only the bench scene's times, serving spec and int8 tier, for the "
+                         "port package under PACKAGE_ROOT (e.g. an unpacked earlier commit)")
     args = ap.parse_args()
+    if args.aot_restart:
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: CUDA is not available")
+        sys.path.insert(0, ROOT)
+        print(json.dumps(aot_restart(args.aot_restart, args.aot_int8, args.t_spawn)),
+              flush=True)
+        return
+    if args.aot_export_int8:
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: CUDA is not available")
+        sys.path.insert(0, ROOT)
+        print(json.dumps(aot_export_int8(args.aot_export_int8)), flush=True)
+        return
+    if args.scene_times:
+        name, smi = phase_device()
+        sys.path.insert(0, os.path.abspath(args.scene_times))
+        from future_urban_scene_generation_tpu_torch.ops import _kernels
+
+        _kernels.load()
+        times = scene_times()
+        log(f"scene times (ms) of {_kernels.__file__}: " + json.dumps(times) + f" ({smi})")
+        if any(k.endswith("_ops") for k in times):
+            log("dispatcher cost a call, host us through the op vs direct: "
+                + json.dumps(_dispatch_cost("cuda")) + f" ({smi})")
+        return
     if args.parallel:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: CUDA is not available")
@@ -3791,6 +4178,8 @@ def main():
         _drop_serving_data(serving)  # ~130 MB of frames and results stay on the machine
     if "warmup" in phases:
         phase_warmup(smi)
+    if "aot" in phases:
+        phase_aot(smi)
     if "train_ec" in phases:
         phase_train_ec(device, smi, args.profile)
     if "parallel" in phases:

@@ -15,8 +15,9 @@ opens the Qt window (exit 2 without PyQt5). ``--inpaint`` erases the selected
 vehicles from the future frames first (EdgeConnect's generators from
 ``<checkpoints_dir>/inpainting/``, whose ``config.yml`` gives Canny's ``SIGMA``), with
 ``--segmenter maskrcnn`` segmenting them by ``<checkpoints_dir>/maskrcnn/maskrcnn.pth``.
-``--aot-dir`` is not ported: it parses and exits 2 with a line that names where it
-waits in ROADMAP.md.
+``--aot-dir DIR`` serves the request from the ahead-of-time scene program that
+``cli.warmup --export-aot DIR`` left for its shapes and spec (pipeline/aot.py), or
+from the live runner where there is none.
 """
 from __future__ import annotations
 
@@ -71,28 +72,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="DEPRECATED and ignored: visibility rasters in a "
                         "scale-free local window (--vis-res)")
     p.add_argument("--aot-dir", type=Path, default=None,
-                   help="ahead-of-time scene programs (not ported)")
+                   help="directory of ahead-of-time scene programs (cli.warmup "
+                        "--export-aot): a matching artifact serves the request")
     return p
-
-
-def _not_ported(args):
-    """(flag, ROADMAP place) of the first requested part that is not ported."""
-    for wanted, flag, where in (
-        (args.aot_dir is not None, "--aot-dir", "queue 1, S10 (AOT)"),
-    ):
-        if wanted:
-            return flag, where
-    return None
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-
-    refused = _not_ported(args)
-    if refused is not None:
-        print(f"{refused[0]} is not ported to PyTorch yet: ROADMAP.md {refused[1]}.",
-              file=sys.stderr)
-        return 2
 
     from future_urban_scene_generation_tpu_torch.config import PipelineConfig
 
@@ -121,6 +107,7 @@ def main(argv=None):
     if args.frame_hw is not None:
         cfg.runtime.frame_hw = None if args.frame_hw[0] < 0 else tuple(args.frame_hw)
     cfg.runtime.vis_res = args.vis_res
+    cfg.runtime.aot_dir = args.aot_dir
     if args.vis_scale is not None:
         print("--vis-scale is deprecated and ignored (see --vis-res)", file=sys.stderr)
     cfg.load_edgeconnect_yaml()

@@ -18,10 +18,16 @@ wall clock around ``torch.cuda.synchronize()``. Without ``--perception`` it runs
 the CAD classifier included). The service pads requests to buckets of 4, so warming
 ``--vehicles 4 8`` covers 1..8 selected vehicles.
 
+``--export-aot DIR`` (which implies ``--perception``) then exports each bucket's
+``run_scene`` as an ahead-of-time program under DIR (pipeline/aot.py), restores it in
+this process and runs it once: a service started with ``--aot-dir DIR`` serves those
+shapes from the artifact. It prints ``exported V=<v> AOT artifact <name> (<MB> MB) in
+<s>s`` (the trace and the save), then the restore's and the restored scene's seconds,
+or a WARNING line when the artifact does not restore.
+
 ``--device`` defaults to ``cuda``; a missing GPU is an error. ``--cache-dir`` parses
 and is ignored (there is no compile cache to fill: the kernel library is the only
-compiled artifact and has its own place), ``--export-aot`` exits 2 (ahead-of-time
-scene programs wait in ROADMAP.md queue 1, S10).
+compiled artifact and has its own place).
 """
 from __future__ import annotations
 
@@ -45,12 +51,34 @@ def build_parser():
                    help="warm run_scene (hourglass + VGG perception path) instead of "
                         "synthesize_scene on given keypoints")
     p.add_argument("--export-aot", metavar="DIR", default=None,
-                   help="ahead-of-time scene programs (not ported)")
+                   help="export each bucket's run_scene as an ahead-of-time program "
+                        "under DIR (implies --perception)")
     p.add_argument("--device", default="cuda")
     return p
 
 
-def _bucket_inputs(v, t_steps, k_mat, kp3d0):
+def seeded_scene(frame_hw, device):
+    """The warm-up's seeded scene but the vehicles: (cad bank of 2 test cars, frame,
+    background, intrinsic) on ``device`` and the intrinsic as numpy. A process that
+    builds the same arguments (the same networks from ``torch.Generator().manual_seed(0)``)
+    finds the artifacts ``--export-aot`` left."""
+    import numpy as np
+    import torch
+
+    from future_urban_scene_generation_tpu_torch.pipeline import runner
+    from future_urban_scene_generation_tpu_torch.utils import mesh as mu
+
+    h, w = frame_hw
+    k_mat = np.array([[1400.0, 0, w / 2], [0, 1400.0, h / 2], [0, 0, 1]], np.float32)
+    mesh, kp3d = mu.make_test_car(subdiv=3)
+    cad_bank = runner.build_cad_bank([mesh] * 2, [kp3d] * 2, scale=5.0, device=device)
+    rng = np.random.RandomState(0)
+    frame = torch.as_tensor(rng.rand(h, w, 3).astype(np.float32)).to(device)
+    background = torch.as_tensor(rng.rand(h, w, 3).astype(np.float32)).to(device)
+    return cad_bank, frame, background, torch.as_tensor(k_mat).to(device), k_mat
+
+
+def bucket_inputs(v, t_steps, k_mat, kp3d0):
     """Boxes, projected keypoints and straight tracks of ``v`` vehicles standing in
     the camera's view (the JAX warmer's placement)."""
     import numpy as np
@@ -78,23 +106,18 @@ def _bucket_inputs(v, t_steps, k_mat, kp3d0):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.export_aot is not None:
-        print("--export-aot is not ported to PyTorch yet: ROADMAP.md queue 1, S10 (AOT).",
-              file=sys.stderr)
-        return 2
+    perception = args.perception or args.export_aot is not None
     if args.cache_dir is not None:
         print("--cache-dir is ignored: the port has no compile cache (the kernel "
               "library is built once under the package's _build/).", file=sys.stderr)
 
-    import numpy as np
     import torch
 
     from future_urban_scene_generation_tpu_torch.ops import _kernels
     from future_urban_scene_generation_tpu_torch.ops import crop as cr
-    from future_urban_scene_generation_tpu_torch.pipeline import runner, stages
+    from future_urban_scene_generation_tpu_torch.pipeline import aot, runner, stages
     from future_urban_scene_generation_tpu_torch.pipeline.service import resolve_device
     from future_urban_scene_generation_tpu_torch.spec import ModelSpec
-    from future_urban_scene_generation_tpu_torch.utils import mesh as mu
 
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -112,32 +135,26 @@ def main(argv=None):
     spec = ModelSpec(generator_dtype=args.generator_dtype,
                      warp_plane_res=args.warp_plane_res)
     h, w = args.frame_hw
-    k_mat = np.array([[1400.0, 0, w / 2], [0, 1400.0, h / 2], [0, 0, 1]], np.float32)
-    mesh, kp3d = mu.make_test_car(subdiv=3)
-    cad_bank = runner.build_cad_bank([mesh] * 2, [kp3d] * 2, scale=5.0, device=device)
-    rng = np.random.RandomState(0)
-    frame = torch.as_tensor(rng.rand(h, w, 3).astype(np.float32)).to(device)
-    background = torch.as_tensor(rng.rand(h, w, 3).astype(np.float32)).to(device)
-    intrinsic = torch.as_tensor(k_mat).to(device)
+    cad_bank, frame, background, intrinsic, k_mat = seeded_scene((h, w), device)
     models = stages.Models.build(spec, torch.Generator().manual_seed(0), device=device)
     kp3d0 = cad_bank.keypoints3d[0].cpu()
 
     for v in args.vehicles:
         bboxes, kp2ds, meters = (torch.as_tensor(a).to(device)
-                                 for a in _bucket_inputs(v, args.steps, k_mat, kp3d0))
+                                 for a in bucket_inputs(v, args.steps, k_mat, kp3d0))
 
         def scene():
-            if args.perception:
+            if perception:
                 return runner.run_scene(models, cad_bank, frame, background, bboxes, meters,
                                         intrinsic, spec=spec, vis_res=args.vis_res)
             with torch.no_grad():
                 window = cr.square_window_from_bbox(bboxes)
-                perception = stages.Perception(
+                given = stages.Perception(
                     cad_idx=torch.zeros(v, dtype=torch.long, device=device),
                     kp_frame=kp2ds, window=window,
                     crop=cr.crop_resize(frame, window, 256),
                 )
-            return runner.synthesize_scene(models, cad_bank, frame, background, perception,
+            return runner.synthesize_scene(models, cad_bank, frame, background, given,
                                            meters, intrinsic, spec=spec,
                                            vis_res=args.vis_res)
 
@@ -153,8 +170,31 @@ def main(argv=None):
             return 1
         print(f"warmed V={v} ({h}x{w}, steps={args.steps}, {args.generator_dtype}, "
               f"warp={args.warp_plane_res}, "
-              f"{'run_scene' if args.perception else 'synthesize_scene'}) "
+              f"{'run_scene' if perception else 'synthesize_scene'}) "
               f"cold {seconds[0]:.2f}s warm {seconds[1]:.2f}s")
+        if args.export_aot is not None:
+            scene_args = (models, cad_bank, frame, background, bboxes, meters, intrinsic)
+            t0 = time.perf_counter()
+            path = aot.export_run_scene(*scene_args, spec=spec, vis_res=args.vis_res,
+                                        directory=args.export_aot)
+            export_s = time.perf_counter() - t0
+            print(f"exported V={v} AOT artifact {path.name} "
+                  f"({path.stat().st_size / 1e6:.1f} MB) in {export_s:.1f}s")
+            t0 = time.perf_counter()
+            run = aot.load_program(path, out_unflatten=lambda outs: runner.SceneResult(*outs))
+            load_s = time.perf_counter() - t0
+            if run is None:
+                print(f"WARNING: exported artifact {path.name} did not restore; restarts "
+                      "will use the live path")
+                continue
+            t0 = time.perf_counter()
+            res = run(*scene_args)
+            sync()
+            if not bool(torch.isfinite(res.frames_icn.float()).all()):
+                print(f"restored scene V={v} is not finite", file=sys.stderr)
+                return 1
+            print(f"restored V={v} AOT artifact {path.name} in {load_s:.1f}s, restored "
+                  f"scene {time.perf_counter() - t0:.2f}s")
     return 0
 
 

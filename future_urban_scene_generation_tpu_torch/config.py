@@ -86,8 +86,8 @@ class RuntimeConfig:
     # Working frame resolution (reference: 1280x720, GUI/app_interface.py:181).
     # None = native resolution of the video/frames.
     frame_hw: Optional[Tuple[int, int]] = (720, 1280)
-    # Directory of ahead-of-time scene-program artifacts. Not ported: the service
-    # refuses a configuration that sets it.
+    # Directory of ahead-of-time scene-program artifacts (pipeline/aot.py): the service
+    # serves a request from the artifact of its shapes and spec there, else live.
     aot_dir: Optional[Path] = None
     # The int8 serving tier (ModelSpec.quantized_convs), set by a library caller; the
     # JAX package's counterpart is configure_models(quantized_convs=True). No CLI flag.

@@ -9,7 +9,9 @@ exactly where the JAX loop would stop. Nothing reads a value back to the host.
 
 Stopping and damping policies are the reference's (utils/pnp_utils.py:8-40); the
 Jacobian is ``torch.func.jacfwd`` of the projection residual, as the JAX package
-uses ``jax.jacfwd``.
+uses ``jax.jacfwd``, behind the operator ``fusg::pnp_jacobian`` (:func:`pnp_jacobian`):
+``torch.export`` (pipeline/aot.py) cannot trace a functorch transform, so an exported
+scene holds the Jacobian as one node that runs this same ``jacfwd``.
 """
 from __future__ import annotations
 
@@ -46,6 +48,28 @@ CANONICAL_TVEC = (0.0, 0.0, 10.0)
 def _residual(params, points3d, points2d, focals, centers):
     pred = project_normalized(points3d, params[..., :3], params[..., 3:], focals, centers)
     return (pred - points2d).reshape(pred.shape[:-2] + (-1,))
+
+
+_JAC_FN = torch.func.vmap(torch.func.jacfwd(_residual), in_dims=(0, 0, 0, None, None))
+
+
+@torch.library.custom_op("fusg::pnp_jacobian", mutates_args=())
+def pnp_jacobian(params: torch.Tensor, points3d: torch.Tensor, points2d: torch.Tensor,
+                 focals: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """(B, 2N, 6) Jacobians of the B residuals at ``params`` (B, 6): ``jacfwd`` of
+    :func:`_residual`, one solve a batch row. An operator, so that the transform runs
+    eagerly inside it (also in a program restored by pipeline/aot.py). A dispatch
+    mode's handler (``opcheck``'s checks, ``FlopCounterMode``) calls the kernel with
+    functorch's dispatch keys excluded, where ``jacfwd`` fails: call it outside such
+    modes."""
+    with _JACFWD_LOCK:
+        return _JAC_FN(params, points3d, points2d, focals, centers)
+
+
+@pnp_jacobian.register_fake
+def _pnp_jacobian_fake(params, points3d, points2d, focals, centers):
+    # jacfwd stacks the six tangents last: the (B, 2N, 6) result is a (B, 6, 2N) block
+    return params.new_empty((params.shape[0], 6, 2 * points2d.shape[1])).transpose(1, 2)
 
 
 def _cholesky_solve_6(a_mat: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -99,9 +123,6 @@ def lm_pnp_batch(points3d, points2d, init_rvec, init_tvec, focals, centers):
     def err_fn(params):
         return _residual(params, points3d, points2d, focals, centers)
 
-    jac_fn = torch.func.vmap(
-        torch.func.jacfwd(_residual), in_dims=(0, 0, 0, None, None)
-    )
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
 
     params = torch.cat([init_rvec, init_tvec], dim=-1).to(torch.float32)
@@ -133,8 +154,7 @@ def lm_pnp_batch(points3d, points2d, init_rvec, init_tvec, focals, centers):
 
         # body_fn, computed for every solve and committed only where active.
         err = err_fn(params)
-        with _JACFWD_LOCK:
-            jac_new = jac_fn(params, points3d, points2d, focals, centers)
+        jac_new = pnp_jacobian(params, points3d, points2d, focals, centers)
         jtj = torch.einsum("bmi,bmj->bij", jac_new, jac_new)
         collapse = torch.sum(jtj, dim=(-1, -2)) < _JTJ_COLLAPSE
         lam_b = torch.where(

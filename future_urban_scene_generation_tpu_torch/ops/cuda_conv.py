@@ -43,6 +43,12 @@ Every wrapper takes its plain version for a CPU tensor; a CUDA tensor launches t
 kernel, or raises if the kernel cannot take the shapes. Each wrapper counts its
 launches: ``LAUNCHES`` (K2), ``SMALL_CIN_V2_LAUNCHES`` (K3), ``SMALL_CIN_LAUNCHES``
 (K4), ``INT8_LAUNCHES`` (N2) and ``QUANT_LAUNCHES`` (N3).
+
+The two routes of the scene are ``torch.library`` operators with fake implementations,
+so that ``torch.export`` (pipeline/aot.py) can trace a scene through them:
+``fusg::icn_stem_conv`` (K2) and ``fusg::conv_int8_quantized`` (N3 then N2). Their CPU
+implementations are the plain versions, their CUDA ones launch and count, and
+:func:`icn_stem_conv` and :func:`conv_int8_quantized` call the operators.
 """
 from __future__ import annotations
 
@@ -224,15 +230,17 @@ def _check_launch(name, dtype, n, cin, k, cout):
         raise ValueError(f"{name}: N x output-channel tiles exceeds the grid limit")
 
 
-def icn_stem_conv(sketch, central, planes, kernel, pad: int = 3,
-                  s_repeat: int = 1) -> torch.Tensor:
-    """The ICN stem over the three pieces (see :func:`icn_stem_conv_plain` for the
-    shapes). CPU tensors take the plain version; CUDA tensors launch kernel K2."""
+@torch.library.custom_op("fusg::icn_stem_conv", mutates_args=(), device_types="cpu")
+def _icn_stem_conv_op(sketch: torch.Tensor, central: torch.Tensor, planes: torch.Tensor,
+                      kernel: torch.Tensor, pad: int, s_repeat: int) -> torch.Tensor:
+    """K2 as the operator ``fusg::icn_stem_conv`` (a node of an exported scene,
+    pipeline/aot.py): the plain version on CPU tensors, the kernel on CUDA tensors."""
+    return icn_stem_conv_plain(sketch, central, planes, kernel, pad, s_repeat).contiguous()
+
+
+@_icn_stem_conv_op.register_kernel("cuda")
+def _icn_stem_conv_cuda(sketch, central, planes, kernel, pad, s_repeat):
     global LAUNCHES
-    if sketch.device.type == "cpu":
-        return icn_stem_conv_plain(sketch, central, planes, kernel, pad, s_repeat)
-    if sketch.device.type != "cuda":
-        raise ValueError(f"icn_stem_conv: unsupported device {sketch.device}")
     _check(sketch, central, planes, kernel, pad, s_repeat)
     n, h, w, _ = sketch.shape
     k, cout = kernel.shape[0], kernel.shape[-1]
@@ -254,6 +262,23 @@ def icn_stem_conv(sketch, central, planes, kernel, pad: int = 3,
     with _COUNT_LOCK:  # scenes of several streams launch from worker threads
         LAUNCHES += 1
     return out
+
+
+@_icn_stem_conv_op.register_fake
+def _icn_stem_conv_fake(sketch, central, planes, kernel, pad, s_repeat):
+    n, h, w, _ = sketch.shape
+    k, cout = kernel.shape[0], kernel.shape[-1]
+    return sketch.new_empty((n, h + 2 * pad - k + 1, w + 2 * pad - k + 1, cout))
+
+
+def icn_stem_conv(sketch, central, planes, kernel, pad: int = 3,
+                  s_repeat: int = 1) -> torch.Tensor:
+    """The ICN stem over the three pieces (see :func:`icn_stem_conv_plain` for the
+    shapes), through ``fusg::icn_stem_conv``: CPU tensors take the plain version;
+    CUDA tensors launch kernel K2."""
+    if sketch.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"icn_stem_conv: unsupported device {sketch.device}")
+    return _icn_stem_conv_op(sketch, central, planes, kernel, int(pad), int(s_repeat))
 
 
 def conv_small_cin_plain(x, kernel) -> torch.Tensor:
@@ -664,21 +689,47 @@ def quantize_int8_packed(x, w_hwio, *, flip: bool = False, in_dilation: int = 1,
     return xq, img, sw
 
 
+@torch.library.custom_op("fusg::conv_int8_quantized", mutates_args=(), device_types="cpu")
+def _conv_int8_quantized_op(x: torch.Tensor, w_hwio: torch.Tensor, out_dtype: torch.dtype,
+                            flip: bool, stride: int, pad_lo: int, pad_hi: int,
+                            dilation: int, in_dilation: int) -> torch.Tensor:
+    """N3 then N2 as one operator, ``fusg::conv_int8_quantized`` (a node of an exported
+    scene, pipeline/aot.py). One operator and not two: N3's three outputs are views of
+    one allocation, which an operator may not return. CPU tensors take the torch
+    composition, CUDA tensors the kernels."""
+    xq, wq, sw = quantize_int8_plain(x, w_hwio.flip(0, 1) if flip else w_hwio)
+    return conv_int8(xq, wq, sw, out_dtype, stride=stride, pad_lo=pad_lo, pad_hi=pad_hi,
+                     dilation=dilation, in_dilation=in_dilation).contiguous()
+
+
+@_conv_int8_quantized_op.register_kernel("cuda")
+def _conv_int8_quantized_cuda(x, w_hwio, out_dtype, flip, stride, pad_lo, pad_hi, dilation,
+                              in_dilation):
+    ho, wo = _check_int8(x, w_hwio, None, out_dtype, stride, pad_lo, pad_hi, dilation,
+                         in_dilation)
+    xq, img, sw = quantize_int8_packed(x, w_hwio, flip=flip, in_dilation=in_dilation,
+                                       pad_lo=pad_lo)
+    return _launch_conv_int8(xq, img, sw, out_dtype, x.shape[-1], w_hwio.shape[0], ho, wo,
+                             stride, pad_lo, dilation, in_dilation)
+
+
+@_conv_int8_quantized_op.register_fake
+def _conv_int8_quantized_fake(x, w_hwio, out_dtype, flip, stride, pad_lo, pad_hi, dilation,
+                              in_dilation):
+    ho, wo = int8_out_hw(x.shape[1], x.shape[2], w_hwio.shape[0], stride, pad_lo, pad_hi,
+                         dilation, in_dilation)
+    return x.new_empty((x.shape[0], ho, wo, w_hwio.shape[3]), dtype=out_dtype)
+
+
 def conv_int8_quantized(x, w_hwio, out_dtype, *, flip: bool = False, stride: int = 1,
                         pad_lo: int = 0, pad_hi: int = 0, dilation: int = 1,
                         in_dilation: int = 1) -> torch.Tensor:
     """One conv on the int8 tier: x (N, H, W, C) and the HWIO weight in x's dtype
     (``flip``: flipped on its tap axes, a transposed conv's kernel) -> (N, Ho, Wo, O)
-    in ``out_dtype``. CPU tensors take the torch composition
-    (:func:`quantize_int8_plain`, then :func:`conv_int8`'s plain version); CUDA
-    tensors launch N3 then N2, or raise."""
-    geom = dict(stride=stride, pad_lo=pad_lo, pad_hi=pad_hi, dilation=dilation,
-                in_dilation=in_dilation)
-    if x.device.type == "cpu":
-        xq, wq, sw = quantize_int8_plain(x, w_hwio.flip(0, 1) if flip else w_hwio)
-        return conv_int8(xq, wq, sw, out_dtype, **geom)
-    ho, wo = _check_int8(x, w_hwio, None, out_dtype, **geom)
-    xq, img, sw = quantize_int8_packed(x, w_hwio, flip=flip, in_dilation=in_dilation,
-                                       pad_lo=pad_lo)
-    return _launch_conv_int8(xq, img, sw, out_dtype, x.shape[-1], w_hwio.shape[0], ho, wo,
-                             stride, pad_lo, dilation, in_dilation)
+    in ``out_dtype``, through ``fusg::conv_int8_quantized``. CPU tensors take the torch
+    composition (:func:`quantize_int8_plain`, then :func:`conv_int8`'s plain version);
+    CUDA tensors launch N3 then N2, or raise."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"conv_int8_quantized: unsupported device {x.device}")
+    return _conv_int8_quantized_op(x, w_hwio, out_dtype, bool(flip), int(stride), int(pad_lo),
+                                   int(pad_hi), int(dilation), int(in_dilation))

@@ -20,6 +20,11 @@ operator computes anything. Depth ties resolve first-in-buffer-order in both
 buffers. Each wrapper counts its launches (``LAUNCHES``, ``INDEXED_LAUNCHES``). The
 kernels take any H, W (ceil tiles, masked edges) and any T.
 
+K1, the scene's raster, is the ``torch.library`` operator ``fusg::rasterize_corners``
+with a fake implementation, so that ``torch.export`` (pipeline/aot.py) can trace a
+scene through it: its CPU implementation is the plain version, its CUDA one launches
+the kernels and counts the launch, and :func:`rasterize_corners` calls the operator.
+
 Beside the kernels stand their plain versions, used by the tests and by nothing on
 a CUDA path: :func:`triangle_planes_corners` (the setup kernel's table, equal bit
 for bit), :func:`indexed_loader_plain` (the indexed loader's addressing),
@@ -30,7 +35,7 @@ for bit), :func:`indexed_loader_plain` (the indexed loader's addressing),
 from __future__ import annotations
 
 import threading
-from typing import NamedTuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -421,20 +426,41 @@ def launch_corners(screen_xyz, color_rgb, out_hw, cull=None, *,
                    screen.device, phases, scratch, tile_counts)
 
 
-def rasterize_corners(screen_xyz: torch.Tensor, color_rgb: torch.Tensor, out_hw,
-                      cull: torch.Tensor = None):
-    """Rasterize R renders of corner-expanded triangles (R, 3, 3, T) ->
-    (image (R, H, W, 3), background mask (R, H, W)). CPU tensors take the plain
-    version; CUDA tensors launch kernel K1."""
+@torch.library.custom_op("fusg::rasterize_corners", mutates_args=(), device_types="cpu")
+def _rasterize_corners_op(screen_xyz: torch.Tensor, color_rgb: torch.Tensor,
+                          out_hw: List[int], cull: Optional[torch.Tensor]
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 as the operator ``fusg::rasterize_corners``, so that a program exported with
+    ``torch.export`` (pipeline/aot.py) holds the raster as one node: the plain version
+    on CPU tensors, the kernels on CUDA tensors."""
+    return rasterize_corners_plain(screen_xyz, color_rgb, tuple(out_hw), cull)
+
+
+@_rasterize_corners_op.register_kernel("cuda")
+def _rasterize_corners_cuda(screen_xyz, color_rgb, out_hw, cull):
     global LAUNCHES
-    if screen_xyz.device.type == "cpu":
-        return rasterize_corners_plain(screen_xyz, color_rgb, out_hw, cull)
-    if screen_xyz.device.type != "cuda":
-        raise ValueError(f"rasterize_corners: unsupported device {screen_xyz.device}")
-    out = launch_corners(screen_xyz, color_rgb, out_hw, cull)
+    out = launch_corners(screen_xyz, color_rgb, tuple(out_hw), cull)
     with _COUNT_LOCK:  # scenes of several streams launch from worker threads
         LAUNCHES += 1
     return out.image, out.background
+
+
+@_rasterize_corners_op.register_fake
+def _rasterize_corners_fake(screen_xyz, color_rgb, out_hw, cull):
+    h, w = out_hw
+    r_n = screen_xyz.shape[0]
+    return (screen_xyz.new_empty((r_n, h, w, 3), dtype=torch.float32),
+            screen_xyz.new_empty((r_n, h, w), dtype=torch.bool))
+
+
+def rasterize_corners(screen_xyz: torch.Tensor, color_rgb: torch.Tensor, out_hw,
+                      cull: torch.Tensor = None):
+    """Rasterize R renders of corner-expanded triangles (R, 3, 3, T) ->
+    (image (R, H, W, 3), background mask (R, H, W)), through ``fusg::rasterize_corners``:
+    CPU tensors take the plain version; CUDA tensors launch kernel K1."""
+    if screen_xyz.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"rasterize_corners: unsupported device {screen_xyz.device}")
+    return _rasterize_corners_op(screen_xyz, color_rgb, [int(n) for n in out_hw], cull)
 
 
 def _check_indexed(verts: torch.Tensor, triangles: torch.Tensor):

@@ -19,7 +19,11 @@ background by default, Mask R-CNN with ``cfg.segmenter == "maskrcnn"``, or one t
 caller passes) and EdgeConnect (``pipeline/inpaint.py``), batched over the six frames
 a vehicle. Where the JAX service serves the static background when the EdgeConnect
 files are missing, this one raises ``FileNotFoundError`` naming them, as both do for
-a missing ``maskrcnn.pth``. Ahead-of-time programs are not ported and are refused.
+a missing ``maskrcnn.pth``.
+
+With ``cfg.runtime.aot_dir`` set, a request is served by the ahead-of-time program
+of its argument shapes and spec under that directory where ``cli.warmup
+--export-aot`` left one (pipeline/aot.py), and by the live runner otherwise.
 """
 from __future__ import annotations
 
@@ -71,10 +75,6 @@ class InpaintModels(NamedTuple):
 
 class SceneService:
     def __init__(self, cfg: PipelineConfig, segmenter=None):
-        if cfg.runtime.aot_dir:
-            raise NotImplementedError(
-                "ahead-of-time scene programs (--aot-dir) are not ported to PyTorch yet: "
-                "ROADMAP.md queue 1, S10")
         self.cfg = cfg
         # The inpaint branch's vehicle segmenter (models/detector.py); None resolves
         # to cfg.segmenter: Mask R-CNN from the zoo, or BackgroundDiffSegmenter
@@ -304,10 +304,19 @@ class SceneService:
         return self._write_outputs(frame_id, frames_icn, frames_vunet)
 
     def _scene_program(self, scene_args):
-        """The callable that serves this request's arguments: the live runner with
-        the service's spec (the seam the JAX service picks an ahead-of-time program
-        at, and tests capture the arguments at)."""
+        """The callable that serves this request's arguments (JAX service.py:251-267):
+        with ``runtime.aot_dir`` set, the restored program of the artifact that
+        matches the arguments' shapes, the spec and ``vis_res``; else, or on a miss
+        (a bucket never warmed, another spec), the live runner with the service's
+        spec: the same results, without the artifact."""
         spec, vis_res = self.spec, self.cfg.runtime.vis_res
+        if self.cfg.runtime.aot_dir:
+            from future_urban_scene_generation_tpu_torch.pipeline import aot
+
+            run = aot.lookup_run_scene(*scene_args, spec=spec, vis_res=vis_res,
+                                       directory=self.cfg.runtime.aot_dir)
+            if run is not None:
+                return run
         return lambda *a: runner.run_scene(*a, spec=spec, vis_res=vis_res)
 
     def _static_background(self):

@@ -9,6 +9,8 @@ to 1e-6 (both cast float64 to float32 at the device boundary). The device half i
 the port's own ``run_scene`` (held to JAX in test_torch_pipeline.py): the CLI's 12
 PNGs must hold exactly its frames, converted on the device.
 """
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +20,7 @@ from future_urban_scene_generation_tpu.config import PipelineConfig as JPipeline
 from future_urban_scene_generation_tpu.pipeline.service import SceneService as JSceneService
 from future_urban_scene_generation_tpu_torch.cli import run_test
 from future_urban_scene_generation_tpu_torch.config import PipelineConfig
-from future_urban_scene_generation_tpu_torch.pipeline import runner, service
+from future_urban_scene_generation_tpu_torch.pipeline import aot, runner, service
 from future_urban_scene_generation_tpu_torch.utils.native import read_png
 
 H, W = 240, 320
@@ -153,17 +155,28 @@ def test_static_background_png_is_used(dataset, tmp_path):
         path.unlink()
 
 
-def test_service_refuses_unported_parts_and_missing_card(dataset, tmp_path):
+def test_service_refuses_unported_parts_and_missing_card(dataset, tmp_path, monkeypatch):
     # The inpaint branch's weight files are missing: an error that names them, never
     # a request served without the erase.
     for kw, names in ((dict(inpaint=True), "EdgeModel_gen.pth and .*InpaintingModel_gen.pth"),
                       (dict(segmenter="maskrcnn"), "maskrcnn.pth")):
         with pytest.raises(FileNotFoundError, match=names):
             service.SceneService(_configs(dataset, tmp_path, **kw)[1])
+    # An aot_dir without artifacts (pipeline/aot.py) is taken: every request misses and
+    # is served by the live runner, without a warning.
     cfg = _configs(dataset, tmp_path)[1]
     cfg.runtime.aot_dir = tmp_path / "aot"
-    with pytest.raises(NotImplementedError, match="S10"):
-        service.SceneService(cfg)
+    svc = _PortHostService(cfg)
+    stand_ins = (torch.zeros(0), torch.zeros(0))  # the networks and the CAD bank
+    scene_args = (*stand_ins, *(torch.as_tensor(a) for a in svc.request_arguments(1, [7])),
+                  torch.as_tensor(svc.intrinsic))
+    live = []
+    monkeypatch.setattr(runner, "run_scene", lambda *a, spec, vis_res: live.append(a) or "live")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        program = service.SceneService._scene_program(svc, scene_args)
+        assert program(*scene_args) == "live"
+    assert all(a is b for a, b in zip(live[0], scene_args))
     assert PipelineConfig().device == "cuda"
     if not torch.cuda.is_available():
         cfg = _configs(dataset, tmp_path)[1]
@@ -179,7 +192,6 @@ def test_service_refuses_unported_parts_and_missing_card(dataset, tmp_path):
     (["--select-ids", "7", "--inpaint"], FileNotFoundError("y/inpainting/EdgeModel_gen.pth")),
     (["--select-ids", "7", "--segmenter", "maskrcnn"],
      FileNotFoundError("y/maskrcnn/maskrcnn.pth")),
-    (["--select-ids", "7", "--aot-dir", "somewhere"], "S10"),
     (["--select-ids", "7", "--gui"], "GUI unavailable"),  # no PyQt5 here: the JAX line
     (["--gui"], "use --select-ids for headless mode"),
 ])
@@ -246,6 +258,54 @@ def test_cli_headless_end_to_end(dataset, tmp_path, monkeypatch):
         x0, y0, x1, y1 = (int(v) for v in bboxes[0])
         diff = (frames[0] - background).abs().amax(-1)[y0:y1, x0:x1]
         assert float(diff.max()) > 0.05
+
+
+def test_cli_aot_dir_serves_the_request(dataset, tmp_path, monkeypatch):
+    """``cli.run_test --aot-dir DIR --device cpu`` writes its 12 PNGs: from the live
+    runner while DIR holds no artifact of the request (silently), then from the
+    artifact of the request's shapes and spec once one is there. The scene is a
+    stand-in on both paths (the whole scene's export and restore are
+    test_torch_aot.py's and the card's), so the PNGs say which path served."""
+    aot_dir = tmp_path / "aot"
+    seen = []
+
+    def live_scene(models, bank, frame, background, bboxes, meters, k, *, spec, vis_res):
+        seen.append(((models, bank, frame, background, bboxes, meters, k), spec, vis_res))
+        stack = background[None].expand(6, -1, -1, -1)
+        return runner.SceneResult(stack, stack, torch.zeros(len(bboxes)),
+                                  torch.zeros(len(bboxes), dtype=torch.long))
+
+    def stored_scene(models, bank, frame, background, bboxes, meters, k):
+        stack = (1.0 - background)[None].expand(6, -1, -1, -1)
+        return runner.SceneResult(stack, stack * 0.5, bboxes[:, 0], bboxes[:, 1].long())
+
+    monkeypatch.setattr(runner, "run_scene", live_scene)
+    out_dir = tmp_path / "results"
+    argv = [str(dataset), str(tmp_path / "no_kpoints"), str(tmp_path / "no_ckpts"),
+            "--select-ids", "7", "--frame-id", "1", "--output-dir", str(out_dir),
+            "--frame-hw", "-1", "-1", "--device", "cpu", "--aot-dir", str(aot_dir)]
+
+    def pngs(branch):
+        return [read_png(out_dir / branch / "S01_c001" / f"{fid:04}.png")
+                for fid in range(1, 12, 2)]
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert run_test.main(argv) == 0
+    assert len(sorted(out_dir.rglob("*.png"))) == 12 and len(seen) == 1
+    args, spec, vis_res = seen[0]
+    background = args[3].numpy()
+    want = np.clip(background * 255.0, 0, 255).astype(np.uint8)
+    assert all(np.array_equal(p, want) for p in pngs("warp&learn") + pngs("vunet"))
+
+    path = aot.export_program(stored_scene, args, kind="run_scene",
+                              static=aot._scene_static(spec, vis_res), directory=aot_dir)
+    assert run_test.main(argv) == 0
+    assert len(seen) == 1  # served by the artifact: the live runner was not called
+    for branch, scale in (("warp&learn", 1.0), ("vunet", 0.5)):
+        want = np.clip((1.0 - background) * scale * 255.0, 0, 255).astype(np.uint8)
+        assert all(np.array_equal(p, want) for p in pngs(branch)), branch
+    assert sorted(p.name for p in aot_dir.iterdir()) == [path.name]
 
 
 def test_static_background_of_another_size_is_resized_bilinearly(dataset, tmp_path):
@@ -338,12 +398,15 @@ def test_web_gui_serves_a_real_service(dataset, tmp_path, monkeypatch):
         svc.close()
 
 
-def test_warmup_cli_on_cpu(capsys):
+def test_warmup_cli_on_cpu(capsys, tmp_path, monkeypatch):
     """``cli.warmup --device cpu`` at the tiny shape of tests/test_service_cli.py:147
     (96x128, V=1, 2 steps, f32, warp 64), in process: one line per bucket with a cold
-    and a warm time; ``--cache-dir`` is ignored with a line; ``--export-aot`` and a
-    missing card are refused. (``--perception`` swaps in ``run_scene``, which the
-    pipeline tests hold; the on-card script drives that flag.)"""
+    and a warm time; ``--cache-dir`` is ignored with a line; a missing card is
+    refused. ``--export-aot DIR`` leaves one ``.pt2`` and prints the ``exported`` and
+    ``restored`` lines; its scene is a stand-in ``run_scene`` here (the whole scene's
+    export takes minutes on a CPU and is test_torch_aot.py's slow tier and the
+    card's). (``--perception`` swaps in ``run_scene``, which the pipeline tests hold;
+    the on-card script drives that flag.)"""
     from future_urban_scene_generation_tpu_torch.cli import warmup
 
     tiny = ["--frame-hw", "96", "128", "--vehicles", "1", "--steps", "2",
@@ -355,8 +418,22 @@ def test_warmup_cli_on_cpu(capsys):
                                                             "float32, warp=64, synthesize_scene)")]
     assert len(lines) == 1 and " cold " in lines[0] and " warm " in lines[0]
     assert "BUILD_SECONDS" not in out  # nothing to build for the CPU
-    assert warmup.main([*tiny, "--export-aot", "d"]) == 2
-    assert "S10" in capsys.readouterr().err
+
+    def stand_in_scene(models, bank, frame, background, bboxes, meters, k, *, spec, vis_res):
+        stack = (background * models.icn.stem.conv.bias.sum())[None].expand(
+            meters.shape[1], -1, -1, -1)
+        return runner.SceneResult(stack, stack, bboxes[:, 0], bboxes[:, 1].long())
+
+    monkeypatch.setattr(runner, "run_scene", stand_in_scene)
+    aot_dir = tmp_path / "aot"
+    assert warmup.main([*tiny, "--device", "cpu", "--export-aot", str(aot_dir)]) == 0
+    out = capsys.readouterr().out
+    (artifact,) = aot_dir.iterdir()
+    assert artifact.suffix == ".pt2"
+    assert any(ln.startswith("warmed V=1 (96x128") and "run_scene" in ln
+               for ln in out.splitlines())
+    assert f"exported V=1 AOT artifact {artifact.name} (" in out
+    assert f"restored V=1 AOT artifact {artifact.name} in " in out
     p = warmup.build_parser()
     assert (p.get_default("device"), p.get_default("generator_dtype"),
             p.get_default("warp_plane_res"), p.get_default("perception")) == (
