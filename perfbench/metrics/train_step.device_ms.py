@@ -1,0 +1,10 @@
+"""train_step.device_ms: device time of the kernels launched inside the benchmark's
+``bench.train_step`` span (``ICNTrainer.train_step``), a step."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or not t.units:
+        return None
+    ks = t.under("bench.train_step")
+    return sum(k.end_ns - k.start_ns for k in ks) / 1e6 / t.units if ks else None
