@@ -1764,12 +1764,13 @@ def icn_int8_split(device="cuda", n=24, hw=256):
     and the rest; with the forward's CUDA-event time, the bf16 forward's, and launches.
     Runs on whichever port package is first on ``sys.path``."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile, record_function
+    from torch.profiler import ProfilerActivity, profile as tprofile
 
     from future_urban_scene_generation_tpu_torch.models import layers
     from future_urban_scene_generation_tpu_torch.ops import cuda_conv
     from future_urban_scene_generation_tpu_torch.pipeline import stages
     from future_urban_scene_generation_tpu_torch.spec import SERVING_SPEC
+    from future_urban_scene_generation_tpu_torch.utils import profiling
 
     spec_q = SERVING_SPEC.replace(quantized_convs=True)
     models = stages.Models.build(SERVING_SPEC, torch.Generator().manual_seed(0), device=device)
@@ -1786,7 +1787,7 @@ def icn_int8_split(device="cuda", n=24, hw=256):
         fn = getattr(mod, name, None)
         if fn is not None:
             def ranged(*a, _fn=fn, **kw):
-                with record_function("fusg.int8_quantize"):
+                with profiling.trace("fusg.int8_quantize"):
                     return _fn(*a, **kw)
             patched.append((mod, name, fn))
             setattr(mod, name, ranged)
@@ -2534,8 +2535,7 @@ def phase_multi(device, card, ctx):
         label = f"{n} cameras, {'threaded' if threaded else 'one thread'}"
         log(f"multi[{label}]: depth {multi.streams[0].depth}, scenes per camera {counts}, "
             f"{sum(counts)} scenes in {wall:.2f} s; aggregate {multi.aggregate_fps:.2f} composited "
-            f"frames/s by one wall clock, {multi.aggregate_fps_per_stream_windows:.2f} as the sum "
-            f"over per-camera windows; latency p50/p90 ms per camera {lat}; launches {launches} "
+            f"frames/s by one wall clock; latency p50/p90 ms per camera {lat}; launches {launches} "
             f"({card})")
         if single is None:
             single = counts[0]

@@ -135,12 +135,26 @@ def family_setup(model: str, *, seed: int, batch: int, lr: float, image_size: in
     """(trainer, fresh train state, make_batch) of one family, where ``make_batch()``
     draws one batch from the family's seeded data source and returns the arguments
     of ``trainer.train_step`` after the state. The one place that says what each
-    family trains on."""
+    family trains on. Each call is a ``fusg.datagen`` span whose request is the
+    batch's index."""
+    import itertools
+
     import torch
 
     from future_urban_scene_generation_tpu_torch.ops.heatmap import heatmaps_from_kpoints
     from future_urban_scene_generation_tpu_torch.ops.resize import resize_linear
     from future_urban_scene_generation_tpu_torch.pipeline import datagen, training
+    from future_urban_scene_generation_tpu_torch.utils import profiling
+
+    def traced(make):
+        index = itertools.count()
+
+        @torch.no_grad()
+        def make_batch():
+            with profiling.request(next(index)), profiling.trace("fusg.datagen"):
+                return make()
+
+        return make_batch
 
     s = image_size
     if model in ("edge", "inpaint"):
@@ -158,7 +172,7 @@ def family_setup(model: str, *, seed: int, batch: int, lr: float, image_size: in
                 return tuple(sample)
             return vgg, images, sample.edges, sample.masks
 
-        return trainer, trainer.init(generator, device=device), torch.no_grad()(make_batch)
+        return trainer, trainer.init(generator, device=device), traced(make_batch)
 
     generator, cad_bank, frame, intrinsic = icn_setup(seed, device)
     if model == "icn":
@@ -190,7 +204,7 @@ def family_setup(model: str, *, seed: int, batch: int, lr: float, image_size: in
                 sample = datagen.cad_batch(generator, class_bank, intrinsic, batch=batch)
                 return resize_linear(sample.images, (s, s)), sample.labels
 
-    return trainer, trainer.init(generator, device=device), torch.no_grad()(make_batch)
+    return trainer, trainer.init(generator, device=device), traced(make_batch)
 
 
 def main(argv=None):

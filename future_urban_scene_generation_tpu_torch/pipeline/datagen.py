@@ -43,6 +43,7 @@ from future_urban_scene_generation_tpu_torch.pipeline import stages
 from future_urban_scene_generation_tpu_torch.pipeline.stages import CadBank
 from future_urban_scene_generation_tpu_torch.render import visibility as vis
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
+from future_urban_scene_generation_tpu_torch.utils import profiling
 
 
 class ICNSample(NamedTuple):
@@ -141,26 +142,30 @@ def icn_pairs(cad_bank: CadBank, frame, intrinsic, draws: ICNDraws, *,
     dev = frame.device
     draws = ICNDraws(*(t.to(dev) for t in draws))
     b = draws.cad_idx.shape[0]
-    src, dst = _vehicle_views(cad_bank, intrinsic, draws, vis_res)
-    s_sk, s_mask, s_win, s_vis, s_polys = src
-    d_sk, d_mask, d_win, d_vis, d_polys = dst
-    textured = cr.stitch(frame, s_sk, s_win,
-                         stages._mask_to_frame(s_mask, s_win, frame.shape[:2]))
-    src_table = stages._to_signed_lab(cr.crop_resize(textured, s_win, stages.SRC_TABLE))
-    planes = stages.warp_planes_to_crop(ModelSpec(), src_table, s_win, s_polys, d_polys,
-                                        s_vis, d_vis, d_win, torch.arange(b, device=dev))
-    central = stages._to_signed_lab(stages.central_crop_patch(textured, s_win))
-    res = planes.shape[2]
-    planes_lab = planes.permute(0, 2, 3, 1, 4).reshape(b, res, res, -1)
-    x = torch.cat([stages._to_signed_lab(d_sk), central, planes_lab], dim=-1)
-    y = stages._to_signed_lab(d_sk * d_mask[..., None])
+    with profiling.trace("fusg.datagen.views"):
+        src, dst = _vehicle_views(cad_bank, intrinsic, draws, vis_res)
+    with profiling.trace("fusg.datagen.pairs"):
+        s_sk, s_mask, s_win, s_vis, s_polys = src
+        d_sk, d_mask, d_win, d_vis, d_polys = dst
+        textured = cr.stitch(frame, s_sk, s_win,
+                             stages._mask_to_frame(s_mask, s_win, frame.shape[:2]))
+        src_table = stages._to_signed_lab(cr.crop_resize(textured, s_win, stages.SRC_TABLE))
+        planes = stages.warp_planes_to_crop(ModelSpec(), src_table, s_win, s_polys, d_polys,
+                                            s_vis, d_vis, d_win, torch.arange(b, device=dev))
+        central = stages._to_signed_lab(stages.central_crop_patch(textured, s_win))
+        res = planes.shape[2]
+        planes_lab = planes.permute(0, 2, 3, 1, 4).reshape(b, res, res, -1)
+        x = torch.cat([stages._to_signed_lab(d_sk), central, planes_lab], dim=-1)
+        y = stages._to_signed_lab(d_sk * d_mask[..., None])
     return ICNSample(x, y)
 
 
 def icn_batch(generator: torch.Generator, cad_bank: CadBank, frame, intrinsic,
               batch: int = 4, *, vis_res: int = 192) -> ICNSample:
     """A batch of ICN pairs: :func:`icn_draws` then :func:`icn_pairs`."""
-    draws = icn_draws(generator, cad_bank.vertices.shape[0], batch)
+    with profiling.trace("fusg.datagen.draws"):
+        draws = icn_draws(generator, cad_bank.vertices.shape[0], batch)
+        draws = ICNDraws(*(t.to(frame.device) for t in draws))
     return icn_pairs(cad_bank, frame, intrinsic, draws, vis_res=vis_res)
 
 

@@ -13,7 +13,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from future_urban_scene_generation_tpu_torch.geometry.projection import project_points_extrinsic
 from future_urban_scene_generation_tpu_torch.geometry.rotations import (
@@ -26,6 +25,7 @@ from future_urban_scene_generation_tpu_torch.pipeline import stages
 from future_urban_scene_generation_tpu_torch.pipeline.stages import CadBank, Models, Perception
 from future_urban_scene_generation_tpu_torch.render import visibility as vis
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
+from future_urban_scene_generation_tpu_torch.utils import profiling
 
 # Default side of the local grid the plane visibility is rastered on (area ratios are
 # affine-invariant, so any grid over the keypoint bbox gives the frame's answer).
@@ -47,7 +47,7 @@ def run_scene(models: Models, cad_bank: CadBank, frame, background, bboxes, mete
     frame / background (H, W, 3) float RGB in [0, 1]; bboxes (V, 4) xyxy;
     meter_coords (V, T, 2) metric trajectories (T - 1 future steps); intrinsic
     (3, 3). Returns T frames per branch."""
-    with record_function("fusg.perceive"):
+    with profiling.trace("fusg.perceive"):
         perception = stages.perceive(models, spec, frame, bboxes)
     return synthesize_scene(models, cad_bank, frame, background, perception,
                             meter_coords, intrinsic, spec=spec, vis_res=vis_res)
@@ -113,7 +113,7 @@ def scene_geometry(cad_bank: CadBank, frame, perception: Perception, meter_coord
     dev = frame.device
     cad_idx = perception.cad_idx
 
-    with record_function("fusg.pnp"):
+    with profiling.trace("fusg.pnp"):
         err, rvec, tvec = stages.solve_poses(perception, cad_bank, intrinsic)
         extrinsics = extrinsic_from_rodrigues(rvec, tvec)
         theta, translation = stages.pose_rollout(meter_coords)
@@ -124,7 +124,7 @@ def scene_geometry(cad_bank: CadBank, frame, perception: Perception, meter_coord
     theta_n = theta.reshape(n)
     tr_n = translation.reshape(n, 3)
     ext_n = per_step(extrinsics)
-    with record_function("fusg.render"):
+    with profiling.trace("fusg.render"):
         sketches, veh_masks, windows = stages.render_vehicle(
             per_step(cad_bank.vertices[cad_idx]),
             per_step(cad_bank.corners[cad_idx]),
@@ -133,14 +133,14 @@ def scene_geometry(cad_bank: CadBank, frame, perception: Perception, meter_coord
             cull=per_step(cad_bank.cullable[cad_idx]),
         )
 
-    with record_function("fusg.visibility"):
+    with profiling.trace("fusg.visibility"):
         kp3d_s = per_step(cad_bank.keypoints3d[cad_idx]) @ z_rot(theta_n) + tr_n[:, None]
         kp2d_s = project_points_extrinsic(kp3d_s, intrinsic, ext_n)
         visibility = vis.compute_visibility_local(ext_n, kp2d_s, kp3d_s, res=vis_res)[:, :5]
         polys = vis.plane_polygons_2d(torch.trunc(kp2d_s), vis.TEXTURE_PLANES)
 
     # Per-vehicle source tables: the frame in each vehicle's step-0 sketch window.
-    with record_function("fusg.src_table"):
+    with profiling.trace("fusg.src_table"):
         src_window = windows.map(lambda f: f.reshape(v, s)[:, 0])
         central_lab = stages._to_signed_lab(
             stages._maybe_flip_rgb(spec, stages.central_crop_patch(frame, perception.window))
@@ -148,7 +148,7 @@ def scene_geometry(cad_bank: CadBank, frame, perception: Perception, meter_coord
         src_table = stages._to_signed_lab(
             cr.crop_resize(frame, src_window, stages.SRC_TABLE)
         ).to(spec.gen_dtype)
-    with record_function("fusg.plane_warp"):
+    with profiling.trace("fusg.plane_warp"):
         step0 = torch.arange(v, device=dev).repeat_interleave(s) * s
         planes = stages.warp_planes_to_crop(
             spec, src_table, src_window, polys[step0], polys, visibility[step0], visibility,
@@ -164,14 +164,14 @@ def generate(models: Models, frame, geom: SceneGeometry, *, spec: ModelSpec):
     v = geom.central_lab.shape[0]
     s = geom.sketches.shape[0] // v
     step0 = torch.arange(v, device=frame.device) * s
-    with record_function("fusg.vunet_encode"):
+    with profiling.trace("fusg.vunet_encode"):
         mu_app = stages.vunet_encode_appearance_batch(
             models, spec, frame, geom.sketches[step0], geom.veh_masks[step0], geom.src_window
         )
-    with record_function("fusg.icn"):
+    with profiling.trace("fusg.icn"):
         icn = stages.icn_synthesize_batch(models, spec, geom.sketches, geom.central_lab,
                                           geom.planes, s_repeat=s)
-    with record_function("fusg.vunet_decode"):
+    with profiling.trace("fusg.vunet_decode"):
         vun = stages.vunet_decode_batch(models, spec, geom.sketches,
                                         [m.repeat_interleave(s, dim=0) for m in mu_app])
     return icn, vun
@@ -200,7 +200,7 @@ def composite(background, geom: SceneGeometry, icn, vun, cad_idx, *,
     if background.dim() == 3:
         background = background.expand(s, *background.shape)
     step_win = win_vs.map(lambda f: f.transpose(0, 1))
-    with record_function("fusg.composite"):
+    with profiling.trace("fusg.composite"):
         frames = stages.composite_frames(
             spec,
             torch.cat([background, background], dim=0),
@@ -242,7 +242,7 @@ def run_scene_sharded(models: Models, cad_bank: CadBank, frame, background, bbox
     camera stream its own mesh (``streaming.MultiStreamRunner(meshes=)``); no
     collective crosses streams."""
     rows = _vehicle_rows(bboxes.shape[0], mesh)
-    with record_function("fusg.perceive"):
+    with profiling.trace("fusg.perceive"):
         perception = stages.perceive(models, spec, frame, bboxes[rows])
     return _synthesize_shard(models, cad_bank, frame, background, perception,
                              meter_coords[rows], intrinsic, mesh, spec, vis_res)
@@ -262,7 +262,7 @@ def _synthesize_shard(models, cad_bank, frame, background, perception, meter_coo
                       intrinsic, mesh, spec, vis_res) -> SceneResult:
     cad_idx, geom, icn, vun = _generate_vehicles(models, cad_bank, frame, perception,
                                                  meter_coords, intrinsic, spec, vis_res)
-    with record_function("fusg.gather"):
+    with profiling.trace("fusg.gather"):
         def gather(t):
             return pmesh.gather_axis(t, mesh, "data")
 

@@ -20,6 +20,7 @@ vehicles over the mesh's 'data' axis (``runner.run_scene_sharded``).
 from __future__ import annotations
 
 import collections
+import itertools
 import queue
 import threading
 import time
@@ -33,6 +34,7 @@ from future_urban_scene_generation_tpu_torch.parallel import mesh as pmesh
 from future_urban_scene_generation_tpu_torch.pipeline import runner as _runner
 from future_urban_scene_generation_tpu_torch.pipeline import tracking as trk
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
+from future_urban_scene_generation_tpu_torch.utils import profiling
 
 
 class StreamRunner:
@@ -70,6 +72,7 @@ class StreamRunner:
         # several runners that share a device.
         self._gate = inflight_gate
         self._inflight: Deque = collections.deque()
+        self._scene_ids = itertools.count()  # each scene's request id in the span record
         self.depth = depth
         self.latencies: list = []
         self._t_first_submit: Optional[float] = None
@@ -103,29 +106,39 @@ class StreamRunner:
             return t.to(torch.float32) / 255.0
         return t
 
-    def _run_scene(self, frame_d, bg_d, b, m):
-        """Enqueue one scene; returns (result, event recorded behind it or None)."""
+    def _run_scene(self, scene_id, frame, background, bboxes, meters):
+        """Enqueue one scene; returns (result, event recorded behind it or None).
+        ``frame`` is a host image or already on the device; ``background`` a host
+        image or None (the frame). The ``fusg.stream.dispatch`` span covers the
+        uploads, the scene's enqueue and the event, and starts once a gate's permit is
+        held, so that no wait on another stream counts as dispatch."""
         if self._gate is not None:
             self._gate.acquire()  # released by _drain_one, or here if dispatch fails
         try:
-            args = (self.models, self.cad_bank, frame_d, bg_d, self._upload(b, self.device),
-                    self._upload(m, self.device), self.intrinsic)
-            if self.mesh is not None:
-                result = _runner.run_scene_sharded(*args, self.mesh, spec=self.spec,
-                                                   vis_res=self.vis_res)
-            else:
-                result = _runner.run_scene(*args, spec=self.spec, vis_res=self.vis_res)
-            event = None
-            if self.device.type == "cuda":
-                event = torch.cuda.Event()
-                event.record()
+            with profiling.request(scene_id), profiling.trace("fusg.stream.dispatch"):
+                frame_d = (frame if isinstance(frame, torch.Tensor)
+                           else self._upload(frame, self.device))
+                bg_d = (self._upload(background, self.device) if background is not None
+                        else frame_d)
+                b, m = self._pad(bboxes, meters)
+                args = (self.models, self.cad_bank, frame_d, bg_d, self._upload(b, self.device),
+                        self._upload(m, self.device), self.intrinsic)
+                if self.mesh is not None:
+                    result = _runner.run_scene_sharded(*args, self.mesh, spec=self.spec,
+                                                       vis_res=self.vis_res)
+                else:
+                    result = _runner.run_scene(*args, spec=self.spec, vis_res=self.vis_res)
+                event = None
+                if self.device.type == "cuda":
+                    event = torch.cuda.Event()
+                    event.record()
         except BaseException:
             if self._gate is not None:
                 self._gate.release()
             raise
         return result, event
 
-    def _submit_scene(self, t0, frame_d, bg_d, b, m):
+    def _submit_scene(self, t0, frame, background, bboxes, meters):
         """Dispatch one scene into the pipeline; returns a drained result or None
         while the pipeline fills. With a gate, a full pipeline drains (releasing a
         permit) BEFORE it dispatches (acquiring one): a worker must never block in
@@ -135,8 +148,9 @@ class StreamRunner:
         out = None
         if self._gate is not None and len(self._inflight) >= self.depth:
             out = self._drain_one()
-        result, event = self._run_scene(frame_d, bg_d, b, m)
-        self._inflight.append((t0, result, event))
+        scene_id = next(self._scene_ids)
+        result, event = self._run_scene(scene_id, frame, background, bboxes, meters)
+        self._inflight.append((t0, scene_id, result, event))
         if out is None and self._gate is None and len(self._inflight) >= self.depth:
             out = self._drain_one()
         return out
@@ -146,19 +160,17 @@ class StreamRunner:
         depth is reached (None while filling). ``frame`` / ``background`` may be
         uint8 (preferred: a quarter of the upload) or float [0, 1]."""
         t0 = time.perf_counter()
-        frame_d = self._upload(frame, self.device)
-        bg_d = self._upload(background, self.device) if background is not None else frame_d
-        b, m = self._pad(bboxes, meters)
-        return self._submit_scene(t0, frame_d, bg_d, b, m)
+        return self._submit_scene(t0, frame, background, bboxes, meters)
 
     def _drain_one(self):
-        t0, result, event = self._inflight.popleft()
+        t0, scene_id, result, event = self._inflight.popleft()
         if self._t_first_submit is None:
             self._t_first_submit = t0
         self._t_first_submit = min(self._t_first_submit, t0)
         try:
-            if event is not None:
-                event.synchronize()
+            with profiling.request(scene_id), profiling.trace("fusg.stream.wait"):
+                if event is not None:
+                    event.synchronize()
         finally:
             if self._gate is not None:
                 self._gate.release()
@@ -276,10 +288,9 @@ class TrackingStreamRunner(StreamRunner):
         if not sel_boxes:
             return None, confirmed
 
-        bg_d = self._upload(background, self.device) if background is not None else frame_d
-        b, m = self._pad(np.stack(sel_boxes), np.stack(sel_meters))
         t0 = time.perf_counter()
-        return self._submit_scene(t0, frame_d, bg_d, b, m), confirmed
+        return self._submit_scene(t0, frame_d, background, np.stack(sel_boxes),
+                                  np.stack(sel_meters)), confirmed
 
 
 class MultiStreamRunner:
@@ -470,11 +481,3 @@ class MultiStreamRunner:
         frames = sum(s._drained * 2 * s.n_steps for s in live)
         wall = max(s._t_last_drain for s in live) - min(s._t_first_submit or 0.0 for s in live)
         return frames / max(wall, 1e-9)
-
-    @property
-    def aggregate_fps_per_stream_windows(self) -> float:
-        """The JAX package's ``aggregate_fps``: the sum over streams of each stream's
-        own ``throughput_fps`` (its own first submit -> last drain window). It equals
-        ``aggregate_fps`` only when all windows coincide and overstates it when
-        streams start or end at different times."""
-        return sum(s.throughput_fps for s in self.streams if s is not None)

@@ -1,29 +1,117 @@
-"""Observability: stage annotations, a trace capture, a timing harness and the
+"""Observability: the port's spans, a trace capture, a timing harness and the
 training metrics log.
 
 Counterpart of the JAX package's utils/profiling.py (``trace`` :19, ``capture_trace``
-:26, ``timeit`` :35, ``MetricsLogger`` :52): ``torch.profiler.record_function`` for
-``jax.profiler.TraceAnnotation``, a ``torch.profiler`` run written to a directory for
-``jax.profiler.start_trace``, and ``torch.cuda.synchronize`` where CUDA is in use
-for JAX's block on its outputs.
+:26, ``timeit`` :35, ``MetricsLogger`` :52): a ``torch.profiler`` run written to a
+directory for ``jax.profiler.start_trace``, and ``torch.cuda.synchronize`` where CUDA
+is in use for JAX's block on its outputs. :func:`trace` is the port's one span: it
+records into an in-memory ring (:func:`spans`) always, and is a ``record_function``
+for the profiler while one runs, as ``jax.profiler.TraceAnnotation`` is for JAX's.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import json
 import os
+import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict
+from typing import Callable, Dict, Hashable, List, NamedTuple, Optional
 
 import torch
 
+# The ring holds the newest RING_SPANS spans of the process. Sizing: a whole 51 s
+# window of each benchmarked workload, with its set-up, at several times today's
+# pace: a served scene leaves 12 spans (10 stages, its dispatch and its wait) and
+# takes 0.84-1.54 s on an H100, at most ~65 scenes and ~800 spans a window; an ICN
+# training step leaves 4 (``fusg.datagen`` and its three children) every ~0.21 s,
+# ~250 steps and ~1,000 spans. 16,384 spans hold 16 times the larger, a few MB.
+RING_SPANS = 16384
+
+
+class Span(NamedTuple):
+    """One closed span. ``start_ns`` / ``end_ns`` are Unix-epoch nanoseconds
+    (``time.time_ns``), the clock torch's profiler stamps its CPU events with, so a
+    span lines up with the profiler's event of the same name and with the device's
+    timeline. ``parent_id`` is the span open around it in its thread (None at the
+    top); ``request`` the key of the enclosing :func:`request` (None outside one)."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    span_id: int
+    parent_id: Optional[int]
+    request: Optional[Hashable]
+    thread: int
+
+
+_RING: collections.deque = collections.deque(maxlen=RING_SPANS)
+_IDS = itertools.count(1)
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+class _ThreadState(threading.local):
+    def __init__(self):
+        self.open: List[int] = []  # ids of this thread's open spans, innermost last
+        self.request: Optional[Hashable] = None
+
+
+_STATE = _ThreadState()
+
+
+class _Trace:
+    __slots__ = ("name", "start", "span_id", "parent", "request", "rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        st = _STATE
+        self.parent = st.open[-1] if st.open else None
+        self.request = st.request
+        self.span_id = next(_IDS)
+        st.open.append(self.span_id)
+        # Entered only under a running profiler, and remembered, so that enter and
+        # exit pair up when the profiler starts or stops inside the span.
+        self.rf = None
+        if _profiler_enabled():
+            self.rf = torch.profiler.record_function(self.name)
+            self.rf.__enter__()
+        self.start = time.time_ns()
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        _STATE.open.pop()
+        _RING.append((self.name, self.start, end, self.span_id, self.parent, self.request,
+                      threading.get_ident()))
+        return False
+
+
+def trace(name: str):
+    """A span named ``name`` around the ``with`` block: recorded in :func:`spans` when
+    it closes, and a ``record_function`` of the same name while a profiler runs."""
+    return _Trace(name)
+
 
 @contextlib.contextmanager
-def trace(name: str):
-    """Annotate a region for the profiler (a ``record_function`` span)."""
-    with torch.profiler.record_function(name):
+def request(key: Hashable):
+    """Spans this thread opens inside the block carry ``key`` as their request: the
+    scene, batch or call that caused them."""
+    st = _STATE
+    outer, st.request = st.request, key
+    try:
         yield
+    finally:
+        st.request = outer
+
+
+def spans() -> List[Span]:
+    """A snapshot of the ring, oldest span first (spans are appended as they close)."""
+    return [Span(*r) for r in list(_RING)]
 
 
 @contextlib.contextmanager

@@ -17,6 +17,7 @@ from future_urban_scene_generation_tpu.pipeline import runner as jrunner
 from future_urban_scene_generation_tpu.utils import mesh as jmu
 from future_urban_scene_generation_tpu_torch.pipeline import datagen, runner
 from future_urban_scene_generation_tpu_torch.utils import mesh as mu
+from future_urban_scene_generation_tpu_torch.utils import profiling
 
 K = np.float32([[600.0, 0, 320], [0, 600.0, 180], [0, 0, 1]])
 FRAME_HW = (360, 640)
@@ -69,11 +70,14 @@ def test_icn_batch_draws_shapes_and_ranges():
     assert torch.allclose(d.extrinsic[:, :3, :3] @ d.extrinsic[:, :3, :3].transpose(1, 2),
                           torch.eye(3).expand(64, 3, 3), atol=1e-5)
     frame = torch.rand(*FRAME_HW, 3, generator=torch.Generator().manual_seed(1))
+    before = {s.span_id for s in profiling.spans()}
     with torch.no_grad():
         s1 = datagen.icn_batch(torch.Generator().manual_seed(0), bank, frame,
                                torch.as_tensor(K), batch=2, vis_res=128)
         s2 = datagen.icn_batch(torch.Generator().manual_seed(1), bank, frame,
                                torch.as_tensor(K), batch=2, vis_res=128)
+    parts = [s.name for s in profiling.spans() if s.span_id not in before]
+    assert parts == ["fusg.datagen.draws", "fusg.datagen.views", "fusg.datagen.pairs"] * 2
     assert s1.inputs.shape == (2, 256, 256, 21) and s1.targets.shape == (2, 256, 256, 3)
     assert torch.isfinite(s1.inputs).all() and s1.inputs.abs().max() <= 1.0 + 1e-4
     assert not torch.allclose(s1.inputs, s2.inputs)

@@ -126,15 +126,14 @@ def test_multi_stream_runner_two_cameras(assets, separate_runs, threaded):
             assert bool(torch.isfinite(got.frames_icn).all())
             for a, b in zip(got, ref):
                 torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
-    # Both aggregates: the strict one divides all frames by one wall clock that
-    # contains every stream's window, so it cannot exceed the sum over windows.
-    strict, summed = multi.aggregate_fps, multi.aggregate_fps_per_stream_windows
-    assert 0.0 < strict <= summed * (1 + 1e-9)
+    # The aggregate divides all frames by one wall clock that contains every stream's
+    # window.
+    strict = multi.aggregate_fps
+    assert strict > 0.0
     frames = sum(len(r) for r in results) * 2 * 2
     wall = (max(s._t_last_drain for s in multi.streams)
             - min(s._t_first_submit for s in multi.streams))
     assert strict == pytest.approx(frames / wall)
-    assert summed == pytest.approx(sum(s.throughput_fps for s in multi.streams))
 
 
 def test_multi_stream_runner_threaded_accumulates_without_on_result(assets, separate_runs):

@@ -16,6 +16,7 @@ from future_urban_scene_generation_tpu_torch.pipeline import runner, stages, str
 from future_urban_scene_generation_tpu_torch.pipeline import tracking as trk
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
 from future_urban_scene_generation_tpu_torch.utils import mesh as mu
+from future_urban_scene_generation_tpu_torch.utils import profiling
 
 H, W = 120, 160
 K = np.array([[150.0, 0, W / 2], [0, 150.0, H / 2], [0, 0, 1]], dtype=np.float32)
@@ -45,6 +46,7 @@ def test_stream_runner_returns_direct_results_in_order(assets):
     meters = np.stack([np.stack([np.linspace(0, 2, 2), np.zeros(2)], -1)])
 
     results, handed_back = [], []
+    before = {s.span_id for s in profiling.spans()}
     for f in frames:
         out = stream.submit(f, bboxes, meters)
         handed_back.append(out is not None)
@@ -54,6 +56,24 @@ def test_stream_runner_returns_direct_results_in_order(assets):
     results.extend(stream.flush())
     assert len(results) == 3 and len(stream.latencies) == 3
     assert stream.throughput_fps > 0.0
+    # Span record: a dispatch and a wait a scene under the scene's id; each wait is
+    # the drained scene's, after the next scene's dispatch; the stages are children
+    # of their scene's dispatch.
+    spans = [s for s in profiling.spans() if s.span_id not in before]
+    dispatch = {s.span_id: s for s in spans if s.name == "fusg.stream.dispatch"}
+    waits = [s for s in spans if s.name == "fusg.stream.wait"]
+    assert [s.request for s in dispatch.values()] == [s.request for s in waits] == [0, 1, 2]
+    by_scene = {s.request: s for s in dispatch.values()}
+    assert all(w.start_ns >= by_scene[w.request].end_ns for w in waits)
+    assert waits[0].start_ns >= by_scene[1].end_ns and waits[1].start_ns >= by_scene[2].end_ns
+    stages = [s for s in spans if s.name not in ("fusg.stream.dispatch", "fusg.stream.wait")]
+    assert {s.name for s in stages} == {
+        "fusg.perceive", "fusg.pnp", "fusg.render", "fusg.visibility", "fusg.src_table",
+        "fusg.plane_warp", "fusg.vunet_encode", "fusg.icn", "fusg.vunet_decode",
+        "fusg.composite"}
+    assert len(stages) == 3 * 10
+    for s in stages:
+        assert s.parent_id in dispatch and s.request == dispatch[s.parent_id].request
     for f, got in zip(frames, results):
         ft = torch.as_tensor(f)
         ref = runner.run_scene(models, bank, ft, ft, torch.as_tensor(np.float32(bboxes)),

@@ -31,6 +31,7 @@ from future_urban_scene_generation_tpu_torch.models.icn import DNLayersMulti, ga
 from future_urban_scene_generation_tpu_torch.pipeline import checkpoint, training
 from future_urban_scene_generation_tpu_torch.pipeline.stages import Models
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
+from future_urban_scene_generation_tpu_torch.utils import profiling
 
 HW, NDF = 32, 8
 
@@ -259,8 +260,19 @@ def test_cli_trains_resumes_and_refuses_unported(tmp_path, capsys):
     out = tmp_path / "run"
     common = ["--model", "icn", "--batch", "1", "--device", "cpu", "--out", str(out),
               "--log-interval", "1", "--save-interval", "1"]
+    before = {s.span_id for s in profiling.spans()}
     assert cli_train.main(common + ["--steps", "1"]) == 0
     assert (out / "checkpoint.pt").exists()
+    # make_batch is one fusg.datagen span, the batch's index its request, over its
+    # three parts.
+    spans = [s for s in profiling.spans() if s.span_id not in before]
+    (batch,) = [s for s in spans if s.name == "fusg.datagen"]
+    parts = [s for s in spans if s.parent_id == batch.span_id]
+    assert batch.request == 0 and batch.parent_id is None
+    assert [s.name for s in parts] == ["fusg.datagen.draws", "fusg.datagen.views",
+                                       "fusg.datagen.pairs"]
+    assert all(s.request == 0 and batch.start_ns <= s.start_ns <= s.end_ns <= batch.end_ns
+               for s in parts)
     assert cli_train.main(common + ["--steps", "2", "--resume"]) == 0
     steps = [json.loads(line)["step"] for line in (out / "metrics.jsonl").read_text().splitlines()]
     assert steps == [0, 1]  # the resumed run picked up at iteration 1
