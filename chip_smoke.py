@@ -60,17 +60,24 @@ times the restart's parts, then the same on the int8 tier; and the dispatcher's 
                                              # int8 tier) for the port package under DIR
     python3 chip_smoke.py --profile          # also profile one scene and one EdgeConnect step each
 
+The pnp phase holds kernel P1 (``csrc/pnp.cu``, the scene's whole CPC pose solve in one
+launch; no TPU kernel: the JAX package's LM loop runs in XLA) to the plain solve bit for
+bit: the card's cases of tests/test_torch_pnp_kernel.py, the keypoints of a 720x1280
+scene at V = 4 and 16, two launches bit-equal; times it beside the plain solve and counts
+the device kernels of the scene's pose span.
+
 The k1 phase holds K1 and K1' (two CUDA launches a call: triangle setup, tiles) at
 every shape against their plain versions after a launch on all-NaN inputs: the setup
 kernel's table bit for bit, the tile kernel's per-tile counts, images and masks; a
 profiled call must show those two kernels on the device and nothing else.
 
 Kernel launches in the ``kernels`` line, each counted over its own path with the
-counters set to 0 just before: K1 and K2 from the main phase's scenes, N2 and N3 from
+counters set to 0 just before: K1, K2 and P1 from the main phase's scenes, N2 and N3 from
 the int8 phase's quantized scenes, K3 from the train phase's CLI run, K1' from the
-demo, N1 from the maskrcnn phase's CLI request (its record from the n1 phase) (N1, N2
-and N3 port no TPU kernel: the JAX package's NMS is a ``lax.scan``, its int8 conv an XLA
-convolution with XLA's quantization ops around it); K4's entry has no caller on any path.
+demo, N1 from the maskrcnn phase's CLI request (its record from the n1 phase) (N1, N2,
+N3 and P1 port no TPU kernel: the JAX package's NMS is a ``lax.scan``, its int8 conv an
+XLA convolution with XLA's quantization ops around it, its PnP a ``lax.while_loop``);
+K4's entry has no caller on any path.
 ``bound_ms`` is the larger of bytes over 3.35 TB/s and operations over the card's
 peak for the kernel's type (the H100 SXM's published 67 TFLOP/s float32, 989 TFLOP/s
 bf16, 1,979 TOP/s int8), from this run's inputs (the raster's operations are counted from the bboxes of
@@ -98,9 +105,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-ALL_PHASES = ("k1", "k2", "k3", "gpu_vs_cpu", "main", "int8", "train", "demo", "n1", "serve",
-              "stream", "multi", "warmup", "aot", "web", "inpaint", "maskrcnn", "train_ec",
-              "parallel")
+ALL_PHASES = ("k1", "k2", "k3", "pnp", "gpu_vs_cpu", "main", "int8", "train", "demo", "n1",
+              "serve", "stream", "multi", "warmup", "aot", "web", "inpaint", "maskrcnn",
+              "train_ec", "parallel")
 # Published peaks of one H100 SXM: device memory bytes/s, float32 FLOP/s outside the
 # tensor cores, dense bf16 FLOP/s.
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -1298,6 +1305,7 @@ def _psnr(a, b):
 
 
 def phase_main(device, profile: bool, card: str):
+    from future_urban_scene_generation_tpu_torch.geometry import pnp
     from future_urban_scene_generation_tpu_torch.ops import cuda_conv, cuda_raster
     from future_urban_scene_generation_tpu_torch.pipeline import runner, stages, synthetic
     from future_urban_scene_generation_tpu_torch.spec import SERVING_SPEC
@@ -1320,6 +1328,7 @@ def phase_main(device, profile: bool, card: str):
 
     cuda_raster.LAUNCHES = 0
     cuda_conv.LAUNCHES = 0
+    pnp.LAUNCHES = 0
     times, res = [], None
     for _ in range(MAIN_SCENES):
         start = torch.cuda.Event(enable_timing=True)
@@ -1329,7 +1338,8 @@ def phase_main(device, profile: bool, card: str):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    launches = {"raster": cuda_raster.LAUNCHES, "icn_stem_conv": cuda_conv.LAUNCHES}
+    launches = {"raster": cuda_raster.LAUNCHES, "icn_stem_conv": cuda_conv.LAUNCHES,
+                "pnp_cpc": pnp.LAUNCHES}
     log(f"main: launches during the {MAIN_SCENES} scenes: {launches}")
     for name, frames in (("icn", res.frames_icn), ("vunet", res.frames_vunet)):
         if tuple(frames.shape) != (6, 1080, 1920, 3) or not bool(torch.isfinite(frames).all()):
@@ -2610,12 +2620,12 @@ def _dispatch_cost(device, calls=200):
                                 (dev(torch.randn(1, 8, 8, 32, generator=g)),
                                  dev(torch.randn(3, 3, 32, 32, generator=g)), torch.float32,
                                  False, 1, 1, 1, 1, 1)),
-        "pnp_jacobian": (pnp.pnp_jacobian, lambda *a: pnp._JAC_FN(*a),
-                         (dev(torch.randn(16, 6, generator=g)),
-                          dev(torch.randn(16, 12, 3, generator=g)),
-                          dev(torch.randn(16, 12, 2, generator=g)),
-                          dev(torch.tensor([300.0, 300.0])), dev(torch.tensor([64.0, 48.0])))),
     }
+    if hasattr(pnp, "_pnp_cpc_op"):  # an earlier package (--scene-times DIR) may lack it
+        cases["pnp_cpc"] = (pnp._pnp_cpc_op, pnp._pnp_cpc_cuda,
+                            (dev(torch.randn(4, 12, 3, generator=g)),
+                             dev(torch.randn(4, 12, 2, generator=g)),
+                             dev(torch.tensor([300.0, 300.0])), dev(torch.tensor([64.0, 48.0]))))
     out = {}
     for name, (op, direct, args) in cases.items():
         times = {}
@@ -2671,6 +2681,7 @@ def aot_restart(directory, quantized: bool, t_spawn: float, device="cuda", hw=SE
     then two restored scenes and two live ``run_scene`` scenes. Holds the restored
     result to the live one (atol 2e-5, ``cad_idx`` equal), counts the graph's ``fusg::``
     nodes and the kernels' launches a scene on both paths. Returns the record."""
+    from future_urban_scene_generation_tpu_torch.geometry import pnp
     from future_urban_scene_generation_tpu_torch.ops import _kernels, cuda_conv, cuda_raster
     from future_urban_scene_generation_tpu_torch.pipeline import aot, runner, stages
     from future_urban_scene_generation_tpu_torch.spec import ModelSpec
@@ -2707,7 +2718,8 @@ def aot_restart(directory, quantized: bool, t_spawn: float, device="cuda", hw=SE
 
     def counters():
         return {"rasterize_corners": cuda_raster.LAUNCHES, "icn_stem_conv": cuda_conv.LAUNCHES,
-                "conv_int8": cuda_conv.INT8_LAUNCHES, "quant_int8": cuda_conv.QUANT_LAUNCHES}
+                "conv_int8": cuda_conv.INT8_LAUNCHES, "quant_int8": cuda_conv.QUANT_LAUNCHES,
+                "pnp_cpc": pnp.LAUNCHES}
 
     def live(*a):
         return runner.run_scene(*a, spec=spec, vis_res=AOT_VIS_RES)
@@ -2761,16 +2773,16 @@ def _aot_restart_checked(proc, quantized, card):
     if max(rec["max_abs_err"].values()) > 2e-5 or not rec["cad_idx_equal"]:
         raise AssertionError(f"aot: the restored scene ({tier}) differs from the live one")
     fusg = rec["fusg"]
-    want = {"rasterize_corners": 1, "icn_stem_conv": 1, "pnp_jacobian": fusg.get("pnp_jacobian")}
+    want = {"rasterize_corners": 1, "icn_stem_conv": 1, "pnp_cpc": 1}
     if quantized:
         want["conv_int8_quantized"] = fusg.get("conv_int8_quantized", 0)
         if want["conv_int8_quantized"] <= 0:
             raise AssertionError(f"aot: the int8 tier's graph holds no quantized conv: {fusg}")
-    if fusg != want or not fusg["pnp_jacobian"]:
+    if fusg != want:
         raise AssertionError(f"aot: the restored graph's operators {fusg} are not {want}")
     n_int8 = fusg.get("conv_int8_quantized", 0)
     per_scene = {"rasterize_corners": 1, "icn_stem_conv": 1, "conv_int8": n_int8,
-                 "quant_int8": n_int8}
+                 "quant_int8": n_int8, "pnp_cpc": 1}
     for label in ("restored", "live"):
         for got in rec["launches"][label]:
             if got != per_scene:
@@ -2833,18 +2845,14 @@ def phase_aot(card):
 
 
 def _direct_routes():
-    """The scene's kernel wrappers and the PnP Jacobian bound straight to the
+    """The scene's kernel wrappers and the PnP solve bound straight to the
     implementations registered under their ``fusg::`` operators (the ``torch.library``
     dispatcher skipped, as the wrappers called them before the operators existed):
     {(module, name): replacement}."""
     from future_urban_scene_generation_tpu_torch.geometry import pnp
     from future_urban_scene_generation_tpu_torch.ops import cuda_conv, cuda_raster
 
-    def jacobian(*args):
-        with pnp._JACFWD_LOCK:
-            return pnp._JAC_FN(*args)
-
-    return {
+    routes = {
         (cuda_raster, "rasterize_corners"): lambda screen, colors, out_hw, cull=None: (
             cuda_raster._rasterize_corners_cuda(screen, colors, list(out_hw), cull)),
         (cuda_conv, "icn_stem_conv"): lambda sketch, central, planes, kernel, pad=3, s_repeat=1: (
@@ -2852,8 +2860,10 @@ def _direct_routes():
         (cuda_conv, "conv_int8_quantized"): lambda x, w, out_dtype, *, flip=False, stride=1, pad_lo=0, pad_hi=0, dilation=1, in_dilation=1: (  # noqa: E501
             cuda_conv._conv_int8_quantized_cuda(x, w, out_dtype, flip, stride, pad_lo, pad_hi,
                                                 dilation, in_dilation)),
-        (pnp, "pnp_jacobian"): jacobian,
     }
+    if hasattr(pnp, "_pnp_cpc_cuda"):  # an earlier package (--scene-times DIR) may lack it
+        routes[(pnp, "pnp_cpc")] = pnp._pnp_cpc_cuda
+    return routes
 
 
 @contextlib.contextmanager
@@ -3403,6 +3413,122 @@ def _n1_check(device, card, launch):
                 replaces="none: not a TPU kernel port (the JAX nms_static, "
                          "future_urban_scene_generation_tpu/ops/detection.py:45, is a lax.scan)",
                 max_abs_err=float(mismatched), ms=wrapper["1,000"], plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None)
+
+
+def _pnp_scene_inputs(v, device, seed=0):
+    """PnP's inputs in the scene cells' kind of scene (720x1280, focal 1400 px, V cars
+    of the 10-CAD bank), keypoints from the random-init hourglass as the scene reads
+    them: (points3d (V, 12, 3), points2d (V, 12, 2), focals, centers)."""
+    from future_urban_scene_generation_tpu_torch.pipeline import stages, synthetic
+    from future_urban_scene_generation_tpu_torch.spec import ModelSpec
+
+    spec = ModelSpec()
+    sc = synthetic.make_bench_scene(V=v, hw=(720, 1280), t_steps=6, device=device, spec=spec,
+                                    seed=seed)
+    with torch.no_grad():
+        per = stages.perceive(sc.models, spec, sc.frame, sc.bboxes)
+    k = sc.intrinsic
+    return (sc.cad_bank.keypoints3d[per.cad_idx.clamp(max=spec.num_cads - 1)], per.kp_frame,
+            torch.stack([k[0, 0], k[1, 1]]), torch.stack([k[0, 2], k[1, 2]]))
+
+
+def _pnp_ops(v: int, n: int) -> float:
+    """Floating-point operations of one P1 call at V vehicles of N keypoints, the most
+    its loop takes (4V solves x 52 iterations), by the kernel's own arithmetic: a
+    solve's iteration builds the rotation and its 3 tangents (~200), each of its 2N
+    rows the camera point in 6 tangents and the projection's quotient (~100), J^T J's
+    21 entries, J^T r's 6 and |r|^2 (2 each a row), and the damped 6 x 6 Cholesky solve
+    and the policy (~200)."""
+    per_iter = 200 + 2 * n * (100 + 2 * (21 + 6 + 1)) + 200
+    return 4 * v * 52 * per_iter
+
+
+def phase_pnp(device, card):
+    """Kernel P1 (``csrc/pnp.cu`` behind ``fusg::pnp_cpc``, the scene's CPC pose solve
+    in one launch): the card's cases of tests/test_torch_pnp_kernel.py, the kernel
+    against the plain solve on the same CUDA tensors, bit for bit, on the keypoints of
+    the scene cells' kind of scene at V = 4 and 16 (with each plain restart's error:
+    most never converge on the random-weight keypoints), times by CUDA events, the
+    bound, and the launches of the scene's pose span."""
+    from future_urban_scene_generation_tpu_torch.geometry import pnp
+    from future_urban_scene_generation_tpu_torch.geometry.rotations import (
+        extrinsic_from_rodrigues,
+    )
+    from future_urban_scene_generation_tpu_torch.pipeline import stages
+
+    proc = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-q",
+                           "-p", "no:cacheprovider", "-m", "chip",
+                           os.path.join(ROOT, "tests", "test_torch_pnp_kernel.py")],
+                          capture_output=True, text=True, cwd=ROOT)
+    log("pnp: card cases of tests/test_torch_pnp_kernel.py: "
+        + (proc.stdout.strip().splitlines() or ["(no output)"])[-1])
+    if proc.returncode != 0:
+        raise AssertionError(f"pnp: the card's cases failed:\n{proc.stdout[-6000:]}"
+                             f"{proc.stderr[-2000:]}")
+
+    times, record = {}, {}
+    for v in (4, 16):
+        args = _pnp_scene_inputs(v, device)
+        got = pnp.pnp_cpc(*args)
+        again = pnp.pnp_cpc(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"pnp: two launches at V={v} differ")
+        want = pnp.solve_pnp_4restarts(*args)
+        n = args[0].shape[1]
+        _, _, restart_mse = pnp.lm_pnp_batch(
+            args[0].repeat_interleave(4, 0), args[1].repeat_interleave(4, 0),
+            torch.tensor(pnp.CANONICAL_RVECS, device=device).repeat(v, 1),
+            torch.tensor(pnp.CANONICAL_TVEC, device=device).expand(4 * v, 3), *args[2:])
+        gaps = [(got[0] - want[0]).abs() / want[0].abs().clamp(min=1e-6),
+                (got[1] - want[1]).abs().amax(-1), (got[2] - want[2]).abs().amax(-1)]
+        log(f"pnp: scene keypoints V={v}: mse kernel {[round(x, 4) for x in got[0].tolist()]}, "
+            f"plain {[round(x, 4) for x in want[0].tolist()]}; relative mse gap "
+            f"{[float(f'{x:.3g}') for x in gaps[0].tolist()]}; |rvec| gap "
+            f"{[float(f'{x:.3g}') for x in gaps[1].tolist()]}; |tvec| gap "
+            f"{[float(f'{x:.3g}') for x in gaps[2].tolist()]}; the plain restarts' mse "
+            f"{[[round(x, 2) for x in row] for row in restart_mse.reshape(v, 4).tolist()]}")
+        if not all(bool(((a == b) | (a.isnan() & b.isnan())).all()) for a, b in zip(got, want)):
+            raise AssertionError(f"pnp: the kernel differs from the plain solve at V={v}")
+        record[v] = max(float(g.nan_to_num().max()) for g in gaps[1:])
+        plain_ms = cuda_ms(lambda: pnp.solve_pnp_4restarts(*args), iters=3)
+        kernel_ms = cuda_ms(lambda: pnp.pnp_cpc(*args), iters=200, warmup=5)
+        bound, by = bound_ms(nbytes(*args) + 7 * 4 * v, _pnp_ops(v, n), PEAK_F32)
+        times[v] = (kernel_ms, plain_ms, bound, by)
+        log(f"pnp: V={v}: kernel {kernel_ms:.4f} ms (CUDA events over 200 calls through "
+            f"pnp.pnp_cpc); plain solve {plain_ms:.1f} ms; bound {bound:.6f} ms by {by} "
+            f"({_pnp_ops(v, n):.3g} operations at most) ({card})")
+
+    # The scene's pose span (runner.scene_geometry's fusg.pnp) by the profiler's device rows.
+    args = _pnp_scene_inputs(4, device)
+    meters = torch.zeros(4, 6, 2, device=device)
+
+    def span():
+        _, rvec, tvec = pnp.pnp_cpc(*args)
+        extrinsic_from_rodrigues(rvec, tvec)
+        stages.pose_rollout(meters)
+
+    span()
+    torch.cuda.synchronize()
+    before = pnp.LAUNCHES
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        span()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    p1 = [e for e in kernels if "pnp_cpc_kernel" in e.name]
+    log(f"pnp: the pose span at V=4 launched {len(kernels)} device kernels, P1 {len(p1)} "
+        f"(pnp.LAUNCHES +{pnp.LAUNCHES - before}), P1 {sum(e.device_time for e in p1) / 1e3:.4f}"
+        f" ms on the device")
+    if pnp.LAUNCHES - before != 1 or len(p1) > 1:
+        raise AssertionError("pnp: the pose span did not launch P1 once")
+    kernel_ms, plain_ms, bound, by = times[4]
+    return dict(name="pnp_cpc", route="cuda",
+                source="future_urban_scene_generation_tpu_torch/csrc/pnp.cu",
+                replaces="none: not a TPU kernel port (the JAX lm_pnp_single, "
+                         "future_urban_scene_generation_tpu/geometry/pnp.py:123, is a "
+                         "lax.while_loop in XLA)",
+                max_abs_err=max(record.values()), ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by, library_ms=None)
 
 
@@ -4145,6 +4271,8 @@ def main():
         kernels.append(phase_k2(device))
     if "k3" in phases:
         kernels.extend(phase_k3(device))
+    if "pnp" in phases:
+        kernels.append(phase_pnp(device, smi))
     if "gpu_vs_cpu" in phases:
         phase_gpu_vs_cpu(device)
     if "main" in phases:

@@ -109,6 +109,15 @@ int fusg_quant_int8(const void* x, int dtype, int n, int h, int w, int c, const 
 // Blocks an SM N3 launches at most (its partials' slices an SM).
 int fusg_quant_int8_slices(void);
 
+// P1 (pnp.cu): the CPC pose solve of geometry/pnp.py solve_pnp_4restarts in one launch,
+// one block of 4 warps a vehicle (a warp a canonical restart of the masked LM loop).
+//   points3d (V, N, 3), points2d (V, N, 2) f32; focals, centers (2,) f32, all on the
+//   device; mse (V,), rvec (V, 3), tvec (V, 3) f32 out: the best restart's mean squared
+//   reprojection error and its z-sign-fixed pose. Not a TPU kernel port (XLA in JAX).
+int fusg_pnp_cpc(const float* points3d, const float* points2d, const float* focals,
+                 const float* centers, float* mse, float* rvec, float* tvec, int n_vehicles,
+                 int n_points, cudaStream_t stream);
+
 #ifdef __cplusplus
 }
 #endif

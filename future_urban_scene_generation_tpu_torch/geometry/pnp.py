@@ -11,7 +11,17 @@ Stopping and damping policies are the reference's (utils/pnp_utils.py:8-40); the
 Jacobian is ``torch.func.jacfwd`` of the projection residual, as the JAX package
 uses ``jax.jacfwd``, behind the operator ``fusg::pnp_jacobian`` (:func:`pnp_jacobian`):
 ``torch.export`` (pipeline/aot.py) cannot trace a functorch transform, so an exported
-scene holds the Jacobian as one node that runs this same ``jacfwd``.
+program of :func:`lm_pnp_batch` holds the Jacobian as one node that runs this same
+``jacfwd``.
+
+The scene solves through the operator ``fusg::pnp_cpc`` (:func:`pnp_cpc`): on CPU
+tensors it is :func:`solve_pnp_4restarts`, the plain version above; on CUDA tensors
+it launches kernel P1 (``csrc/pnp.cu``), the same algorithm and constants in one
+launch, a warp a restart, and counts the launch in ``LAUNCHES``. P1's result equals
+this plain version's on the same CUDA tensors bit for bit: on keypoints that fit no
+pose, restarts that never converge are chaotic, and a rounding apart moves their pose
+by metres. The CUDA path takes no ``_JACFWD_LOCK``. An exported scene holds the solve
+as that one node.
 """
 from __future__ import annotations
 
@@ -21,6 +31,7 @@ from typing import Tuple
 import torch
 
 from future_urban_scene_generation_tpu_torch.geometry.projection import project_normalized
+from future_urban_scene_generation_tpu_torch.ops import _kernels
 from future_urban_scene_generation_tpu_torch.geometry.rotations import (
     matrix_to_rodrigues,
     rodrigues_to_matrix,
@@ -35,6 +46,10 @@ _JTJ_COLLAPSE = 1e-7
 # threads inside ``jacfwd`` at once (two camera streams, each on its worker) tear
 # each other's level down. One Jacobian at a time, then.
 _JACFWD_LOCK = threading.Lock()
+
+LAUNCHES = 0  # P1: pnp_cpc on CUDA tensors
+PNP_MAX_POINTS = 128  # keypoints a vehicle P1 takes (csrc/pnp.cu kPnpMaxPoints)
+_COUNT_LOCK = threading.Lock()
 
 CANONICAL_RVECS = (
     (1.1509305, -1.1552572, 1.2745042),
@@ -241,3 +256,61 @@ def solve_pnp_4restarts(points3d, points2d, focals, centers
     rvec = matrix_to_rodrigues(r_mat)
     tvec = tvec * sign[:, None]
     return errors[ar, best], rvec, tvec
+
+
+@torch.library.custom_op("fusg::pnp_cpc", mutates_args=(), device_types="cpu")
+def _pnp_cpc_op(points3d: torch.Tensor, points2d: torch.Tensor, focals: torch.Tensor,
+                centers: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The CPC solve as the operator ``fusg::pnp_cpc``: the plain version on CPU
+    tensors, kernel P1 on CUDA tensors. Like ``fusg::pnp_jacobian``, the CPU kernel
+    runs ``jacfwd`` and cannot run under a dispatch mode's handler."""
+    return solve_pnp_4restarts(points3d, points2d, focals, centers)
+
+
+@_pnp_cpc_op.register_kernel("cuda")
+def _pnp_cpc_cuda(points3d, points2d, focals, centers):
+    global LAUNCHES
+    v, n = points3d.shape[0], points3d.shape[1]
+    if (points3d.dim() != 3 or points3d.shape[2] != 3 or tuple(points2d.shape) != (v, n, 2)
+            or focals.shape != (2,) or centers.shape != (2,) or not 1 <= n <= PNP_MAX_POINTS):
+        raise ValueError(f"pnp_cpc: points3d {tuple(points3d.shape)}, points2d "
+                         f"{tuple(points2d.shape)}, focals {tuple(focals.shape)}, centers "
+                         f"{tuple(centers.shape)} are not (V, N, 3), (V, N, 2), (2,), (2,) with "
+                         f"1 <= N <= {PNP_MAX_POINTS}")
+    dev = points3d.device
+    if any(t.device != dev for t in (points2d, focals, centers)):
+        raise ValueError("pnp_cpc: the inputs lie on different devices")
+    inputs = [t.to(torch.float32).contiguous() for t in (points3d, points2d, focals, centers)]
+    mse = torch.empty(v, dtype=torch.float32, device=dev)
+    rvec = torch.empty((v, 3), dtype=torch.float32, device=dev)
+    tvec = torch.empty((v, 3), dtype=torch.float32, device=dev)
+    if v == 0:
+        return mse, rvec, tvec
+    rc = _kernels.load().fusg_pnp_cpc(
+        *(t.data_ptr() for t in inputs), mse.data_ptr(), rvec.data_ptr(), tvec.data_ptr(),
+        v, n, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"fusg_pnp_cpc launch failed: CUDA error {rc}")
+    with _COUNT_LOCK:  # scenes of several streams launch from worker threads
+        LAUNCHES += 1
+    return mse, rvec, tvec
+
+
+@_pnp_cpc_op.register_fake
+def _pnp_cpc_fake(points3d, points2d, focals, centers):
+    v = points3d.shape[0]
+    return (points3d.new_empty((v,), dtype=torch.float32),
+            points3d.new_empty((v, 3), dtype=torch.float32),
+            points3d.new_empty((v, 3), dtype=torch.float32))
+
+
+def pnp_cpc(points3d, points2d, focals, centers
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full CPC solve for V vehicles through ``fusg::pnp_cpc``: CPU tensors take
+    :func:`solve_pnp_4restarts`; CUDA tensors launch kernel P1. points3d (V, N, 3),
+    points2d (V, N, 2), focals / centers (2,). Returns (mse (V,), rvec (V, 3),
+    tvec (V, 3))."""
+    if points3d.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"pnp_cpc: unsupported device {points3d.device}")
+    return _pnp_cpc_op(points3d, points2d, focals, centers)

@@ -4,7 +4,8 @@ Counterpart of the JAX package's pipeline/aot.py (``export_program`` :73,
 ``load_program`` :129, ``export_run_scene`` :175, ``lookup_run_scene`` :191), on
 ``torch.export``: warm-up traces the scene once and saves the graph of ATen and
 ``fusg::`` operators (the kernels K1, K2 and the int8 tier's N3 + N2, and the PnP
-Jacobian: ops/cuda_raster.py, ops/cuda_conv.py, geometry/pnp.py) to ``<key>.pt2``;
+solve, kernel P1 on the card: ops/cuda_raster.py, ops/cuda_conv.py, geometry/pnp.py) to
+``<key>.pt2``;
 a restarted service loads it and runs it without tracing the Python scene.
 
 - Programs are exported FLAT, as in the JAX module: the argument tree (``Models``,

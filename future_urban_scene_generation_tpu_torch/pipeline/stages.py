@@ -6,7 +6,7 @@ vehicle-major into N = V * S. Each stage takes the :class:`ModelSpec` explicitly
 All images are float32 RGB in [0, 1], NHWC.
 
   perceive    crop -> CAD classify + keypoints                 (batch V)
-  solve_poses LM-PnP with 4 restarts                           (batch 4V)
+  solve_poses LM-PnP with 4 restarts, one kernel-P1 launch     (batch 4V)
   rollout     trajectory -> per-step rigid motions             (batch V)
   render      posed sketches, one kernel-K1 launch             (batch N)
   warp        plane textures in dst-crop coordinates           (batch N)
@@ -131,11 +131,12 @@ def perceive(models: Models, spec: ModelSpec, frame, bboxes) -> Perception:
 
 
 def solve_poses(perception: Perception, cad_bank: CadBank, intrinsic):
-    """Batched CPC PnP: returns (mse (V,), rvec (V, 3), tvec (V, 3))."""
+    """Batched CPC PnP through ``fusg::pnp_cpc`` (kernel P1 on CUDA tensors): returns
+    (mse (V,), rvec (V, 3), tvec (V, 3))."""
     focals = torch.stack([intrinsic[0, 0], intrinsic[1, 1]])
     centers = torch.stack([intrinsic[0, 2], intrinsic[1, 2]])
     kp3d = cad_bank.keypoints3d[perception.cad_idx]
-    return pnp.solve_pnp_4restarts(kp3d, perception.kp_frame, focals, centers)
+    return pnp.pnp_cpc(kp3d, perception.kp_frame, focals, centers)
 
 
 def pose_rollout(meter_coords):

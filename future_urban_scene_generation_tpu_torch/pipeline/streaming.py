@@ -311,14 +311,14 @@ class MultiStreamRunner:
     ``on_result(stream_idx, result)`` in the worker thread if given, else accumulate
     in ``results[stream_idx]`` until ``flush()``. Pass ``on_result`` (consume and
     release) for long runs: each retained SceneResult keeps two (S, H, W, 3) float32
-    stacks on the device (133 MB at 720x1280 and S = 6). Threads do NOT raise the
-    aggregate today: the scene is paced by the host's launches, which hold the
-    interpreter lock (and the PnP Jacobian is serialized, ``geometry/pnp.py``), so
-    workers contend for it. Measured on an NVIDIA H100 80GB HBM3 at 700 W, 720x1280,
-    V = 4 (``chip_smoke.py --phases multi``; PERF.md section 6): 2 cameras
-    12.85 composited frames/s from one thread against 9.71 threaded, 4 cameras
-    5.57-6.18 threaded. The mode is for callers that must not block in
-    ``submit_frame``.
+    stacks on the device (133 MB at 720x1280 and S = 6). Threads did NOT raise the
+    aggregate while the scene's PnP was ~20,000 host launches that held the
+    interpreter lock (and serialized its Jacobian, ``geometry/pnp.py``): measured on an
+    NVIDIA H100 80GB HBM3 at 700 W, 720x1280, V = 4 (``chip_smoke.py --phases multi``;
+    PERF.md section 6), 2 cameras 12.85 composited frames/s from one thread against
+    9.71 threaded, 4 cameras 5.57-6.18 threaded. On the card the solve is one kernel
+    launch now (P1); the threaded rates have not been measured since. The mode is for
+    callers that must not block in ``submit_frame``.
 
     One shared ``BoundedSemaphore`` of ``max_inflight`` permits bounds the scenes in
     flight across all streams in threaded mode (a scene holds a permit from dispatch

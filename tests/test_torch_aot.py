@@ -2,11 +2,12 @@
 for case against tests/test_aot.py, and the ``fusg::`` operators under them.
 
 The toy program goes through the JAX ``aot`` and the port's on the same numpy inputs.
-The scene's parts are each exported and restored bit-equal to their live calls: PnP
-through ``fusg::pnp_jacobian``, the generators and the composite through
+The scene's parts are each exported and restored bit-equal to their live calls: the
+scene's PnP through ``fusg::pnp_cpc`` (one node), the plain LM loop through
+``fusg::pnp_jacobian``, the generators and the composite through
 ``fusg::icn_stem_conv``, a render through ``fusg::rasterize_corners`` and an int8-tier
-conv through ``fusg::conv_int8_quantized``. Exporting PnP's 52 unrolled iterations
-takes about a minute on a CPU (20,000 graph nodes), so the part's test cuts
+conv through ``fusg::conv_int8_quantized``. Exporting the plain loop's 52 unrolled
+iterations takes about a minute on a CPU (20,000 graph nodes), so its test cuts
 ``_MAX_ITERS`` to 2, four iterations (the Jacobian's operator and the loop's arithmetic
 are what it holds);
 the whole scene, exported once a module at the tiny shape of
@@ -259,6 +260,9 @@ def test_wrappers_refuse_other_devices():
         cuda_conv.icn_stem_conv(torch.zeros(1, 8, 8, 3, device="meta"),
                                 torch.zeros(1, 8, 8, 3, device="meta"), planes,
                                 torch.zeros(7, 7, 21, 64, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        pnp.pnp_cpc(torch.zeros(2, 12, 3, device="meta"), torch.zeros(2, 12, 2, device="meta"),
+                    torch.ones(2, device="meta"), torch.zeros(2, device="meta"))
 
 
 # ---------------------------------------------------------------------------
@@ -285,6 +289,25 @@ def test_pnp_part_roundtrip(tmp_path, monkeypatch):
                                               directory=tmp_path))
     _assert_equal_trees(run(*args), pnp.lm_pnp_batch(*args))
     assert _fusg_nodes(run) == {"pnp_jacobian": pnp._MAX_ITERS + 2}
+    assert _graph_has_no_grad_switch(run)
+
+
+def test_pnp_cpc_part_roundtrip(tmp_path):
+    """The scene's solve, ``pnp.pnp_cpc`` at V=2 (all 52 iterations, 4 restarts, the
+    selection and the sign fix), restored bit-equal to the live call: one
+    ``fusg::pnp_cpc`` node, nothing of the loop in the graph."""
+    g = torch.Generator().manual_seed(6)
+    p3 = torch.randn(2, 12, 3, generator=g)
+    focals, centers = torch.tensor([300.0, 300.0]), torch.tensor([100.0, 80.0])
+    rvec = torch.randn(2, 3, generator=g) * 0.3
+    tvec = torch.tensor([[0.0, 0.0, 10.0]]).repeat(2, 1)
+    p2 = project_normalized(p3, rvec, tvec, focals, centers) + torch.randn(2, 12, 2,
+                                                                          generator=g) * 0.5
+    args = (p3, p2, focals, centers)
+    run = aot.load_program(aot.export_program(pnp.pnp_cpc, args, kind="pnp_cpc",
+                                              directory=tmp_path))
+    _assert_equal_trees(run(*args), pnp.pnp_cpc(*args))
+    assert _fusg_nodes(run) == {"pnp_cpc": 1}
     assert _graph_has_no_grad_switch(run)
 
 
@@ -399,7 +422,7 @@ def test_run_scene_restored_equals_live(tiny_scene, scene_artifact):
     """The restored scene equals the live ``run_scene`` at tests/test_aot.py:193's
     atol of 2e-5 (the live path is held to the JAX package by
     tests/test_torch_pipeline.py), ``cad_idx`` equal; the graph holds the kernels'
-    and the Jacobian's operators and no grad-mode switch."""
+    and the scene's PnP's operators and no grad-mode switch."""
     _, spec, _, _ = tiny_scene
     args, directory, _ = scene_artifact
     run = aot.lookup_run_scene(*args, spec=spec, vis_res=96, directory=directory)
@@ -408,8 +431,7 @@ def test_run_scene_restored_equals_live(tiny_scene, scene_artifact):
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=2e-5, equal_nan=True)
     assert torch.equal(got.cad_idx, want.cad_idx)
-    assert _fusg_nodes(run) == {"rasterize_corners": 1, "icn_stem_conv": 1,
-                                "pnp_jacobian": pnp._MAX_ITERS + 2}
+    assert _fusg_nodes(run) == {"rasterize_corners": 1, "icn_stem_conv": 1, "pnp_cpc": 1}
     assert _graph_has_no_grad_switch(run)
 
 
