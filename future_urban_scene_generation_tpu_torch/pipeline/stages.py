@@ -15,6 +15,7 @@ All images are float32 RGB in [0, 1], NHWC.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import List, NamedTuple
 
 import torch
@@ -40,6 +41,7 @@ from future_urban_scene_generation_tpu_torch.ops.warp import bilinear_sample
 from future_urban_scene_generation_tpu_torch.render import rasterizer as rz
 from future_urban_scene_generation_tpu_torch.render import visibility as vis
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
+from future_urban_scene_generation_tpu_torch.utils import profiling
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -260,52 +262,58 @@ def warp_planes_to_crop(spec: ModelSpec, src_table, src_window: cr.Window, src_p
     py = torch.broadcast_to(dy0 + qs[None, :, None] * dst_window.h[:, None, None] - 0.5,
                             (n, s_res, s_res))
 
+    # The reduced grid's two steps are spans of their own, children of the runner's
+    # ``fusg.plane_warp``: the homography and the r^2 sample, then the paste into the
+    # crop. The exact 256^2 warp opens none.
+    reduced = r != s_res
+
+    def sample(hi, sp, gx, gy):
+        denom = hi[:, 2, 0] * gx + hi[:, 2, 1] * gy + hi[:, 2, 2]
+        denom = torch.where(torch.abs(denom) < 1e-12, torch.full_like(denom, 1e-12), denom)
+        sx = (hi[:, 0, 0] * gx + hi[:, 0, 1] * gy + hi[:, 0, 2]) / denom
+        sy = (hi[:, 1, 0] * gx + hi[:, 1, 1] * gy + hi[:, 1, 2]) / denom
+        tx = (sx - sx0 + 0.5) * (table / sw) - 0.5
+        ty = (sy - sy0 + 0.5) * (table / sh) - 0.5
+        tex = bilinear_sample(src_table, tx, ty, table_index)
+        mask = _inside_poly(sx, sy, sp)
+        return torch.where(mask[..., None], tex, black)
+
     def warp_one(src_idx, dst_idx, extra_skip, quad=False):
         sp = src_polys[ar, src_idx]
         dp = dst_polys[ar, dst_idx]
-        if quad and spec.quad_homography:
-            h12, valid = find_homography_quad(sp[:, :4], dp[:, :4])
-        else:
-            h12, valid = find_homography(sp, dp)
-        h_inv = torch.linalg.inv_ex(h12).inverse
-        hi = h_inv[:, :, :, None, None]  # (N, 3, 3, 1, 1)
-
-        def sample(gx, gy):
-            denom = hi[:, 2, 0] * gx + hi[:, 2, 1] * gy + hi[:, 2, 2]
-            denom = torch.where(torch.abs(denom) < 1e-12, torch.full_like(denom, 1e-12), denom)
-            sx = (hi[:, 0, 0] * gx + hi[:, 0, 1] * gy + hi[:, 0, 2]) / denom
-            sy = (hi[:, 1, 0] * gx + hi[:, 1, 1] * gy + hi[:, 1, 2]) / denom
-            tx = (sx - sx0 + 0.5) * (table / sw) - 0.5
-            ty = (sy - sy0 + 0.5) * (table / sh) - 0.5
-            tex = bilinear_sample(src_table, tx, ty, table_index)
-            mask = _inside_poly(sx, sy, sp)
-            return torch.where(mask[..., None], tex, black)
-
-        if r == s_res:
-            tex = sample(px, py)
-        else:
-            pad = 1.0
-            bx0 = dp[..., 0].amin(-1) - pad
-            bx1 = dp[..., 0].amax(-1) + pad
-            by0 = dp[..., 1].amin(-1) - pad
-            by1 = dp[..., 1].amax(-1) + pad
-            bw = torch.clamp(bx1 - bx0, min=1e-3)
-            bh = torch.clamp(by1 - by0, min=1e-3)
-            qs_r = (torch.arange(r, dtype=torch.float32, device=dev) + 0.5) / r
-            gx = torch.broadcast_to(bx0[:, None, None] + qs_r[None, None, :] * bw[:, None, None],
-                                    (n, r, r))
-            gy = torch.broadcast_to(by0[:, None, None] + qs_r[None, :, None] * bh[:, None, None],
-                                    (n, r, r))
-            rel = sample(gx, gy) - black
-            ax = s_res / dst_window.w
-            ay = s_res / dst_window.h
-            b_x = -ax * dst_window.x_start + 0.5 * ax - 0.5
-            b_y = -ay * dst_window.y_start + 0.5 * ay - 0.5
-            scale = torch.stack([ay * bh / r, ax * bw / r], dim=-1)
-            translation = torch.stack([ay * by0 + b_y, ax * bx0 + b_x], dim=-1)
-            pasted = cr.scale_and_translate(rel, (s_res, s_res), scale, translation,
-                                            antialias=True)
-            tex = pasted + black
+        with profiling.trace("fusg.plane_warp.sample") if reduced else contextlib.nullcontext():
+            if quad and spec.quad_homography:
+                h12, valid = find_homography_quad(sp[:, :4], dp[:, :4])
+            else:
+                h12, valid = find_homography(sp, dp)
+            hi = torch.linalg.inv_ex(h12).inverse[:, :, :, None, None]  # (N, 3, 3, 1, 1)
+            if not reduced:
+                tex = sample(hi, sp, px, py)
+            else:
+                pad = 1.0
+                bx0 = dp[..., 0].amin(-1) - pad
+                bx1 = dp[..., 0].amax(-1) + pad
+                by0 = dp[..., 1].amin(-1) - pad
+                by1 = dp[..., 1].amax(-1) + pad
+                bw = torch.clamp(bx1 - bx0, min=1e-3)
+                bh = torch.clamp(by1 - by0, min=1e-3)
+                qs_r = (torch.arange(r, dtype=torch.float32, device=dev) + 0.5) / r
+                gx = torch.broadcast_to(
+                    bx0[:, None, None] + qs_r[None, None, :] * bw[:, None, None], (n, r, r))
+                gy = torch.broadcast_to(
+                    by0[:, None, None] + qs_r[None, :, None] * bh[:, None, None], (n, r, r))
+                rel = sample(hi, sp, gx, gy) - black
+        if reduced:
+            with profiling.trace("fusg.plane_warp.paste"):
+                ax = s_res / dst_window.w
+                ay = s_res / dst_window.h
+                b_x = -ax * dst_window.x_start + 0.5 * ax - 0.5
+                b_y = -ay * dst_window.y_start + 0.5 * ay - 0.5
+                scale = torch.stack([ay * bh / r, ax * bw / r], dim=-1)
+                translation = torch.stack([ay * by0 + b_y, ax * bx0 + b_x], dim=-1)
+                pasted = cr.scale_and_translate(rel, (s_res, s_res), scale, translation,
+                                                antialias=True)
+                tex = pasted + black
 
         ok = valid & ~extra_skip
         write = F.one_hot(dst_idx, vis.NUM_TEXTURE_PLANES).to(torch.float32)

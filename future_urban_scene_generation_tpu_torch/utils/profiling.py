@@ -23,11 +23,12 @@ from typing import Callable, Dict, Hashable, List, NamedTuple, Optional
 import torch
 
 # The ring holds the newest RING_SPANS spans of the process. Sizing: a whole 51 s
-# window of each benchmarked workload, with its set-up, at several times today's
-# pace: a served scene leaves 12 spans (10 stages, its dispatch and its wait) and
-# takes 0.84-1.54 s on an H100, at most ~65 scenes and ~800 spans a window; an ICN
-# training step leaves 4 (``fusg.datagen`` and its three children) every ~0.21 s,
-# ~250 steps and ~1,000 spans. 16,384 spans hold 16 times the larger, a few MB.
+# window of each benchmarked workload, with its set-up: a served scene leaves 12 spans
+# (10 stages, its dispatch and its wait), 18 with the reduced-grid plane warp's sample
+# and paste spans (3 each), and takes 0.23-0.9 s on an H100, at most ~220 scenes and
+# ~4,000 spans a window; an ICN training step leaves 4 (``fusg.datagen`` and its three
+# children) every ~0.21 s, ~250 steps and ~1,000 spans. 16,384 spans hold four times
+# the larger, a few MB.
 RING_SPANS = 16384
 
 

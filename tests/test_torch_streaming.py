@@ -66,7 +66,9 @@ def test_stream_runner_returns_direct_results_in_order(assets):
     by_scene = {s.request: s for s in dispatch.values()}
     assert all(w.start_ns >= by_scene[w.request].end_ns for w in waits)
     assert waits[0].start_ns >= by_scene[1].end_ns and waits[1].start_ns >= by_scene[2].end_ns
-    stages = [s for s in spans if s.name not in ("fusg.stream.dispatch", "fusg.stream.wait")]
+    warp_parts = [s for s in spans if s.name.startswith("fusg.plane_warp.")]
+    stages = [s for s in spans if s.name not in ("fusg.stream.dispatch", "fusg.stream.wait")
+              and s not in warp_parts]
     assert {s.name for s in stages} == {
         "fusg.perceive", "fusg.pnp", "fusg.render", "fusg.visibility", "fusg.src_table",
         "fusg.plane_warp", "fusg.vunet_encode", "fusg.icn", "fusg.vunet_decode",
@@ -74,6 +76,13 @@ def test_stream_runner_returns_direct_results_in_order(assets):
     assert len(stages) == 3 * 10
     for s in stages:
         assert s.parent_id in dispatch and s.request == dispatch[s.parent_id].request
+    # SPEC's reduced 96^2 grid: each plane warp's sample and paste, 3 each a scene,
+    # are children of the scene's ``fusg.plane_warp``.
+    warps = {s.span_id: s for s in stages if s.name == "fusg.plane_warp"}
+    assert sorted(s.name for s in warp_parts) == \
+        ["fusg.plane_warp.paste"] * 9 + ["fusg.plane_warp.sample"] * 9
+    for s in warp_parts:
+        assert s.parent_id in warps and s.request == warps[s.parent_id].request
     for f, got in zip(frames, results):
         ft = torch.as_tensor(f)
         ref = runner.run_scene(models, bank, ft, ft, torch.as_tensor(np.float32(bboxes)),
