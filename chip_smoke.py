@@ -66,6 +66,15 @@ bit: the card's cases of tests/test_torch_pnp_kernel.py, the keypoints of a 720x
 scene at V = 4 and 16, two launches bit-equal; times it beside the plain solve and counts
 the device kernels of the scene's pose span.
 
+The plane_warp phase holds kernel W1 (``csrc/plane_warp.cu``, the scene's plane warp past
+its homographies in one or two launches; no TPU kernel: the JAX package warps in XLA) to
+the plain warp: the card's
+cases of tests/test_torch_plane_warp_kernel.py, the warps of the scene cells' kind of
+scene and of datagen's batch (the largest difference, the share of texels that
+differ); times it and the plain warp by CUDA events beside the bytes
+bound and each one's host enqueue, counts the device kernels of a served scene's warp
+span, and lists the calls of that scene that still make the host wait for the card.
+
 The k1 phase holds K1 and K1' (two CUDA launches a call: triangle setup, tiles) at
 every shape against their plain versions after a launch on all-NaN inputs: the setup
 kernel's table bit for bit, the tile kernel's per-tile counts, images and masks; a
@@ -105,7 +114,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-ALL_PHASES = ("k1", "k2", "k3", "pnp", "gpu_vs_cpu", "main", "int8", "train", "demo", "n1",
+ALL_PHASES = ("k1", "k2", "k3", "pnp", "plane_warp", "gpu_vs_cpu", "main", "int8", "train",
+              "demo", "n1",
               "serve", "stream", "multi", "warmup", "aot", "web", "inpaint", "maskrcnn",
               "train_ec", "parallel")
 # Published peaks of one H100 SXM: device memory bytes/s, float32 FLOP/s outside the
@@ -1308,6 +1318,7 @@ def phase_main(device, profile: bool, card: str):
     from future_urban_scene_generation_tpu_torch.geometry import pnp
     from future_urban_scene_generation_tpu_torch.ops import cuda_conv, cuda_raster
     from future_urban_scene_generation_tpu_torch.pipeline import runner, stages, synthetic
+    from future_urban_scene_generation_tpu_torch.render import plane_warp
     from future_urban_scene_generation_tpu_torch.spec import SERVING_SPEC
 
     t0 = time.perf_counter()
@@ -1329,6 +1340,7 @@ def phase_main(device, profile: bool, card: str):
     cuda_raster.LAUNCHES = 0
     cuda_conv.LAUNCHES = 0
     pnp.LAUNCHES = 0
+    plane_warp.LAUNCHES = 0
     times, res = [], None
     for _ in range(MAIN_SCENES):
         start = torch.cuda.Event(enable_timing=True)
@@ -1339,7 +1351,7 @@ def phase_main(device, profile: bool, card: str):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     launches = {"raster": cuda_raster.LAUNCHES, "icn_stem_conv": cuda_conv.LAUNCHES,
-                "pnp_cpc": pnp.LAUNCHES}
+                "pnp_cpc": pnp.LAUNCHES, "plane_warp": plane_warp.LAUNCHES}
     log(f"main: launches during the {MAIN_SCENES} scenes: {launches}")
     for name, frames in (("icn", res.frames_icn), ("vunet", res.frames_vunet)):
         if tuple(frames.shape) != (6, 1080, 1920, 3) or not bool(torch.isfinite(frames).all()):
@@ -2601,6 +2613,10 @@ def _dispatch_cost(device, calls=200):
     through the op, us direct)}, the lesser of two runs each."""
     from future_urban_scene_generation_tpu_torch.geometry import pnp
     from future_urban_scene_generation_tpu_torch.ops import cuda_conv, cuda_raster
+    try:
+        from future_urban_scene_generation_tpu_torch.render import plane_warp
+    except ImportError:  # an earlier package (--scene-times DIR) may lack it
+        plane_warp = None
 
     g = torch.Generator().manual_seed(9)
     screen = torch.rand(2, 3, 3, 64, generator=g) * 30.0
@@ -2626,6 +2642,17 @@ def _dispatch_cost(device, calls=200):
                             (dev(torch.randn(4, 12, 3, generator=g)),
                              dev(torch.randn(4, 12, 2, generator=g)),
                              dev(torch.tensor([300.0, 300.0])), dev(torch.tensor([64.0, 48.0]))))
+    if plane_warp is not None:
+        one, two = torch.ones(1), torch.ones(2)
+        cases["plane_warp"] = (plane_warp._plane_warp_op, plane_warp._plane_warp_cuda,
+                               (dev(torch.rand(1, 16, 16, 3, generator=g)), *map(dev, (
+                                   one * 0, one * 0, one * 16, one * 16,
+                                   torch.rand(2, 5, 6, 2, generator=g) * 16,
+                                   torch.rand(2, 5, 6, 2, generator=g) * 16,
+                                   torch.ones(2, 5, dtype=torch.bool),
+                                   torch.ones(2, 5, dtype=torch.bool),
+                                   two * 0, two * 0, two * 16, two * 16,
+                                   torch.zeros(2, dtype=torch.int64))), 256, 256, True))
     out = {}
     for name, (op, direct, args) in cases.items():
         times = {}
@@ -2685,6 +2712,7 @@ def aot_restart(directory, quantized: bool, t_spawn: float, device="cuda", hw=SE
     from future_urban_scene_generation_tpu_torch.ops import _kernels, cuda_conv, cuda_raster
     from future_urban_scene_generation_tpu_torch.pipeline import aot, runner, stages
     from future_urban_scene_generation_tpu_torch.spec import ModelSpec
+    from future_urban_scene_generation_tpu_torch.render import plane_warp
 
     split = {"import": time.time() - t_spawn}
 
@@ -2719,7 +2747,7 @@ def aot_restart(directory, quantized: bool, t_spawn: float, device="cuda", hw=SE
     def counters():
         return {"rasterize_corners": cuda_raster.LAUNCHES, "icn_stem_conv": cuda_conv.LAUNCHES,
                 "conv_int8": cuda_conv.INT8_LAUNCHES, "quant_int8": cuda_conv.QUANT_LAUNCHES,
-                "pnp_cpc": pnp.LAUNCHES}
+                "pnp_cpc": pnp.LAUNCHES, "plane_warp": plane_warp.LAUNCHES}
 
     def live(*a):
         return runner.run_scene(*a, spec=spec, vis_res=AOT_VIS_RES)
@@ -2773,7 +2801,7 @@ def _aot_restart_checked(proc, quantized, card):
     if max(rec["max_abs_err"].values()) > 2e-5 or not rec["cad_idx_equal"]:
         raise AssertionError(f"aot: the restored scene ({tier}) differs from the live one")
     fusg = rec["fusg"]
-    want = {"rasterize_corners": 1, "icn_stem_conv": 1, "pnp_cpc": 1}
+    want = {"rasterize_corners": 1, "icn_stem_conv": 1, "pnp_cpc": 1, "plane_warp": 1}
     if quantized:
         want["conv_int8_quantized"] = fusg.get("conv_int8_quantized", 0)
         if want["conv_int8_quantized"] <= 0:
@@ -2782,7 +2810,7 @@ def _aot_restart_checked(proc, quantized, card):
         raise AssertionError(f"aot: the restored graph's operators {fusg} are not {want}")
     n_int8 = fusg.get("conv_int8_quantized", 0)
     per_scene = {"rasterize_corners": 1, "icn_stem_conv": 1, "conv_int8": n_int8,
-                 "quant_int8": n_int8, "pnp_cpc": 1}
+                 "quant_int8": n_int8, "pnp_cpc": 1, "plane_warp": 1}
     for label in ("restored", "live"):
         for got in rec["launches"][label]:
             if got != per_scene:
@@ -2851,6 +2879,10 @@ def _direct_routes():
     {(module, name): replacement}."""
     from future_urban_scene_generation_tpu_torch.geometry import pnp
     from future_urban_scene_generation_tpu_torch.ops import cuda_conv, cuda_raster
+    try:
+        from future_urban_scene_generation_tpu_torch.render import plane_warp
+    except ImportError:  # an earlier package (--scene-times DIR) may lack it
+        plane_warp = None
 
     routes = {
         (cuda_raster, "rasterize_corners"): lambda screen, colors, out_hw, cull=None: (
@@ -2863,6 +2895,8 @@ def _direct_routes():
     }
     if hasattr(pnp, "_pnp_cpc_cuda"):  # an earlier package (--scene-times DIR) may lack it
         routes[(pnp, "pnp_cpc")] = pnp._pnp_cpc_cuda
+    if plane_warp is not None:
+        routes[(plane_warp, "_plane_warp_op")] = plane_warp._plane_warp_cuda
     return routes
 
 
@@ -3530,6 +3564,164 @@ def phase_pnp(device, card):
                          "lax.while_loop in XLA)",
                 max_abs_err=max(record.values()), ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by, library_ms=None)
+
+
+def _w1_bytes(args) -> int:
+    """Bytes the warp has to move at least: its (N, 5, 256, 256, 3) f32 output written
+    once. The texels it samples are left out (a plane reads a part of its table, which
+    the L2 may hold), and so is W1's own r^2 scratch."""
+    return args[2].shape[0] * 5 * 256 * 256 * 3 * 4
+
+
+def _host_syncs(fn):
+    """Each point of ``fn`` at which the host waited for the card
+    (``torch.cuda.set_sync_debug_mode("warn")``), by the port's innermost frame and the
+    runner's line that led there, with counts."""
+    import traceback
+    import warnings
+
+    found = {}
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" not in str(message):
+            return
+        port = [f for f in traceback.extract_stack()[:-1]
+                if "future_urban_scene_generation_tpu_torch" in f.filename]
+        where = [f"{os.path.relpath(f.filename, ROOT)}:{f.lineno} {f.name}"
+                 for f in (port[-1:] + [f for f in port if f.filename.endswith("runner.py")][-1:])]
+        key = " <- ".join(where) or f"{filename}:{lineno}"
+        found[key] = found.get(key, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return found
+
+
+def phase_plane_warp(device, card):
+    """Kernel W1 (``csrc/plane_warp.cu`` behind ``fusg::plane_warp``, the scene's plane
+    warp past its homographies): the card's cases of tests/test_torch_plane_warp_kernel.py;
+    W1 against the plain warp on the warps of the scene cells' kind of scene and of
+    datagen's batch (the largest difference, the share of texels that differ);
+    W1's time by CUDA events beside the plain warp's and the bytes bound, and each one's
+    host enqueue; the device kernels launched under the scene's ``fusg.plane_warp``
+    span; and which calls of a served scene still make the host wait for the card."""
+    from perfbench.harness import trace as ptrace
+    from future_urban_scene_generation_tpu_torch.pipeline import runner, stages, synthetic
+    from future_urban_scene_generation_tpu_torch.render import plane_warp
+    from future_urban_scene_generation_tpu_torch.spec import SERVING_SPEC
+
+    from future_urban_scene_generation_tpu_torch.ops import _kernels
+
+    lines = _kernels.BUILD_LOG.splitlines()
+    for i, line in enumerate(lines[:-1]):  # W1's kernels and the out-of-line solve
+        if "Function properties for" in line and "plane_warp_cu" in line:
+            fn = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_plane_warp_cu_\w{8}", "", line.split("for ")[-1])
+            log(f"  ptxas: {fn[:70]}: {lines[i + 1].strip()}")
+            if " 0 bytes spill stores, 0 bytes spill loads" not in " " + lines[i + 1]:
+                raise AssertionError(f"W1 spills registers: {line}: {lines[i + 1]}")
+    test_file = os.path.join(ROOT, "tests", "test_torch_plane_warp_kernel.py")
+    proc = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-q",
+                           "-p", "no:cacheprovider", "-m", "chip", test_file],
+                          capture_output=True, text=True, cwd=ROOT)
+    log("plane_warp: card cases of tests/test_torch_plane_warp_kernel.py: "
+        + (proc.stdout.strip().splitlines() or ["(no output)"])[-1])
+    if proc.returncode != 0:
+        raise AssertionError(f"plane_warp: the card's cases failed:\n{proc.stdout[-6000:]}"
+                             f"{proc.stderr[-2000:]}")
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_plane_warp_kernel as cases
+
+    records = {}
+    for name in sorted(cases.CARD_SCENES):
+        spec, args = cases.CARD_SCENES[name](device)
+        got = stages.warp_planes_to_crop(spec, *args)
+        want = cases._plain(spec, args)
+        nan = torch.isnan(want)
+        err = float((got - want).abs()[~nan].max())
+        differ = float(((got != want) & ~nan).float().mean())
+        if err or not torch.equal(torch.isnan(got), nan):
+            raise AssertionError(f"plane_warp: W1 is not the plain warp bit for bit on {name}")
+
+        def host(fn, iters):
+            times = []
+            for _ in range(iters):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            return statistics.median(times)
+
+        w1 = lambda: stages.warp_planes_to_crop(spec, *args)  # noqa: E731
+        plain = lambda: cases._plain(spec, args)  # noqa: E731
+        call_ms, plain_ms = cuda_ms(w1, iters=200, warmup=5), cuda_ms(plain, iters=5)
+        host_w1, host_plain = host(w1, 50), host(plain, 5)
+        # W1's own kernels: their device time by the profiler, over 20 calls.
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                w1()
+            torch.cuda.synchronize()
+        kernel_ms = sum(e.device_time for e in prof.events()
+                        if "plane_warp_" in e.name and "_kernel" in e.name) / 20 / 1e3
+        bound, by = bound_ms(_w1_bytes(args), 0.0, PEAK_F32)
+        records[name] = (kernel_ms, plain_ms, bound, by, err)
+        log(f"plane_warp: {name}: N={args[2].shape[0]} grid {spec.warp_plane_res}^2 table "
+            f"{tuple(args[0].shape)} {str(args[0].dtype)[6:]}: W1 against the plain warp: "
+            f"largest difference {err:.3g}, {differ:.3g} of the texels differ; W1's kernels "
+            f"{kernel_ms:.4f} ms on the device (profiler, 20 calls); the call with the plain "
+            f"homographies {call_ms:.3f} ms (CUDA events over 200 calls), the plain warp "
+            f"{plain_ms:.3f} ms; host enqueue {host_w1:.3f} ms against {host_plain:.3f} ms; "
+            f"bound {bound:.4f} ms by {by} ({_w1_bytes(args) / 1e6:.1f} MB, the output "
+            f"write) ({card})")
+
+    # The scene's warp span: the runner's source-row copies, the homographies and W1.
+    spec = SERVING_SPEC
+    sc = synthetic.make_bench_scene(V=4, hw=(1080, 1920), t_steps=6, device=device, spec=spec)
+
+    def scene():
+        return runner.run_scene(sc.models, sc.cad_bank, sc.frame, sc.background, sc.bboxes,
+                                sc.meters, sc.intrinsic, spec=spec)
+
+    scene()
+    torch.cuda.synchronize()
+    before = plane_warp.LAUNCHES
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        scene()
+        torch.cuda.synchronize()
+    tr = ptrace.reduce(prof.profiler.kineto_results.events(), 1)
+    under = tr.under("fusg.plane_warp")
+    log(f"plane_warp: a served scene's fusg.plane_warp span launched {len(under)} device "
+        f"kernels ({sorted({k.name[:48] for k in under})}), plane_warp.LAUNCHES "
+        f"+{plane_warp.LAUNCHES - before}")
+    if plane_warp.LAUNCHES - before != 1:
+        raise AssertionError("plane_warp: the scene's warp span did not run W1 once")
+    filed = [(k.name.split("<")[0].split()[-1], k.span) for k in under
+             if "plane_warp_" in k.name]
+    log(f"plane_warp: W1's kernels in the served scene, by the span open at their launch: "
+        f"{filed}")
+    if sorted(span for _, span in filed) != ["fusg.plane_warp.paste", "fusg.plane_warp.sample"]:
+        raise AssertionError("plane_warp: W1's kernels are not filed under the warp's spans")
+    syncs = _host_syncs(scene)
+    log(f"plane_warp: host syncs of a served scene (set_sync_debug_mode): "
+        f"{json.dumps(syncs, indent=1)}")
+    if any(k.startswith("future_urban_scene_generation_tpu_torch/render/plane_warp.py")
+           for k in syncs):
+        raise AssertionError("plane_warp: W1's path syncs the host past the homographies")
+    kernel_ms, plain_ms, bound, by, err = records["bf16_1080p_v4_r96"]
+    return dict(name="plane_warp", route="cuda",
+                source="future_urban_scene_generation_tpu_torch/csrc/plane_warp.cu",
+                replaces="none: not a TPU kernel port (the JAX stages.warp_planes_to_crop, "
+                         "future_urban_scene_generation_tpu/pipeline/stages.py, runs in XLA)",
+                max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None)
 
 
 def _rel_l2(a, b) -> float:
@@ -4273,6 +4465,8 @@ def main():
         kernels.extend(phase_k3(device))
     if "pnp" in phases:
         kernels.append(phase_pnp(device, smi))
+    if "plane_warp" in phases:
+        kernels.append(phase_plane_warp(device, smi))
     if "gpu_vs_cpu" in phases:
         phase_gpu_vs_cpu(device)
     if "main" in phases:

@@ -118,6 +118,32 @@ int fusg_pnp_cpc(const float* points3d, const float* points2d, const float* foca
                  const float* centers, float* mse, float* rvec, float* tvec, int n_vehicles,
                  int n_points, cudaStream_t stream);
 
+// W1 (plane_warp.cu): the plane warp of render/plane_warp.py warp_planes_plain for n
+// vehicle-steps past its homographies, each `phases` bit one launch: bit 0 the grid kernel
+// (res < 256 only: a block a (row, warp) samples its res^2 grid into scratch), bit 1 the
+// compose kernel (a block a (row, crop row): the 256^2 sample or the paste, and the
+// composite into all 5 slots). Every array is contiguous and on the device; the struct is
+// read during the call. Not a TPU kernel port (XLA in JAX).
+typedef struct {
+  const void* table;  // (n_tables, table_res, table_res, 3): bf16 where table_bf16, else f32
+  const float* src_win;  // (4, n_tables) f32: x_start, y_start, w, h of each table's window
+  const float* dst_win;  // (4, n) f32: the same of each row's crop window
+  const float* src_polys;  // (n, 5, 6, 2) f32
+  const float* dst_polys;
+  const long long* table_index;  // (n,) i64: the table of each row
+  const float* hi_t;  // (3n, 3, 3) f32: each warp's inverse homography transposed, warp-major
+                      // (side, front/back, the other plane)
+  const long long* src_plane;  // (3, n) i64: each warp's source plane
+  const long long* slot;  // (3, n) i64: its destination plane, the slot it writes
+  const unsigned char* ok;  // (3, n) bool: a valid homography and not skipped
+  float* out;  // (n, 5, 256, 256, 3) f32
+  float* scratch;  // res < 256: round4(3 n) i32 flags, then 3 n res^2 3 f32
+  int table_bf16, n_tables, table_res;
+  int n, res;  // res: the sampling grid (256 = the crop's)
+  float black[3];  // signed-LAB black
+} FusgPlaneWarpArgs;
+int fusg_plane_warp(const FusgPlaneWarpArgs* args, int phases, cudaStream_t stream);
+
 #ifdef __cplusplus
 }
 #endif

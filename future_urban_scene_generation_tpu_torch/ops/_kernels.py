@@ -10,9 +10,10 @@ around the shared main loops of ``conv_core.cuh``. Three more port no TPU kernel
 ``conv_int8.cu`` N2, the int8 serving tier's convolution (an int8 XLA conv in the
 JAX package), and ``quant_int8.cu`` N3, the tier's quantization of N2's operands
 (XLA ops there); the last two share ``int8_plan.cuh``. ``pnp.cu`` holds P1, the whole
-CPC pose solve of the scene (the JAX package's LM loop runs in XLA). The wrappers and
-their launch counters are in ``ops/cuda_raster.py``, ``ops/cuda_conv.py``,
-``ops/detection.py`` and ``geometry/pnp.py``.
+CPC pose solve of the scene (the JAX package's LM loop runs in XLA), and
+``plane_warp.cu`` W1, the scene's plane warp (XLA ops in the JAX package). The wrappers
+and their launch counters are in ``ops/cuda_raster.py``, ``ops/cuda_conv.py``,
+``ops/detection.py``, ``geometry/pnp.py`` and ``render/plane_warp.py``.
 
 The sources are compiled with ``nvcc`` for ``sm_90a``, one process per source in
 parallel, and linked into a plain-C-interface shared library under
@@ -36,7 +37,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("raster.cu", "stem_conv.cu", "conv_small_cin.cu", "nms.cu", "conv_int8.cu",
-           "quant_int8.cu", "pnp.cu")
+           "quant_int8.cu", "pnp.cu", "plane_warp.cu")
 HEADERS = ("fusg_kernels.h", "conv_core.cuh", "int8_plan.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -149,4 +150,6 @@ def _bind(lib):
     lib.fusg_quant_int8_slices.restype = i
     lib.fusg_pnp_cpc.argtypes = [p] * 7 + [i, i, p]
     lib.fusg_pnp_cpc.restype = i
+    lib.fusg_plane_warp.argtypes = [p, i, p]
+    lib.fusg_plane_warp.restype = i
     return lib

@@ -3,8 +3,9 @@
 Counterpart of the JAX package's pipeline/aot.py (``export_program`` :73,
 ``load_program`` :129, ``export_run_scene`` :175, ``lookup_run_scene`` :191), on
 ``torch.export``: warm-up traces the scene once and saves the graph of ATen and
-``fusg::`` operators (the kernels K1, K2 and the int8 tier's N3 + N2, and the PnP
-solve, kernel P1 on the card: ops/cuda_raster.py, ops/cuda_conv.py, geometry/pnp.py) to
+``fusg::`` operators (the kernels K1, K2 and the int8 tier's N3 + N2, the PnP solve,
+kernel P1 on the card, and the plane warp, kernel W1: ops/cuda_raster.py,
+ops/cuda_conv.py, geometry/pnp.py, render/plane_warp.py) to
 ``<key>.pt2``;
 a restarted service loads it and runs it without tracing the Python scene.
 

@@ -149,10 +149,12 @@ def scene_geometry(cad_bank: CadBank, frame, perception: Perception, meter_coord
             cr.crop_resize(frame, src_window, stages.SRC_TABLE)
         ).to(spec.gen_dtype)
     with profiling.trace("fusg.plane_warp"):
-        step0 = torch.arange(v, device=dev).repeat_interleave(s) * s
+        def step0(t):  # each row's vehicle at step 0: one copy kernel
+            return t.reshape(v, s, *t.shape[1:])[:, 0].repeat_interleave(s, 0, output_size=n)
+
         planes = stages.warp_planes_to_crop(
-            spec, src_table, src_window, polys[step0], polys, visibility[step0], visibility,
-            windows, torch.arange(n, device=dev) // s,
+            spec, src_table, src_window, step0(polys), polys, step0(visibility), visibility,
+            windows, torch.arange(v, device=dev).repeat_interleave(s, output_size=n),
         )
     return SceneGeometry(sketches, veh_masks, windows, planes, central_lab, src_window, err)
 

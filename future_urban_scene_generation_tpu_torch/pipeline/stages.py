@@ -9,23 +9,18 @@ All images are float32 RGB in [0, 1], NHWC.
   solve_poses LM-PnP with 4 restarts, one kernel-P1 launch     (batch 4V)
   rollout     trajectory -> per-step rigid motions             (batch V)
   render      posed sketches, one kernel-K1 launch             (batch N)
-  warp        plane textures in dst-crop coordinates           (batch N)
+  warp        plane textures in dst-crop coordinates, W1       (batch N)
   generate    ICN (stem = kernel K2) and VUNet                 (batch N)
   composite   masked stitch into the background, vehicle order (batch 2S)
 """
 from __future__ import annotations
 
-import contextlib
 from typing import List, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from future_urban_scene_generation_tpu_torch.geometry import pnp
-from future_urban_scene_generation_tpu_torch.geometry.homography import (
-    find_homography,
-    find_homography_quad,
-)
 from future_urban_scene_generation_tpu_torch.geometry.rotations import z_rot
 from future_urban_scene_generation_tpu_torch.geometry.trajectory import rollout_from_meters
 from future_urban_scene_generation_tpu_torch.models.hourglass import HourglassNet, decode_heatmaps
@@ -37,9 +32,8 @@ from future_urban_scene_generation_tpu_torch.models.vunet import Vunet
 from future_urban_scene_generation_tpu_torch.ops import colorspace as cs
 from future_urban_scene_generation_tpu_torch.ops import crop as cr
 from future_urban_scene_generation_tpu_torch.ops import cuda_conv
-from future_urban_scene_generation_tpu_torch.ops.warp import bilinear_sample
+from future_urban_scene_generation_tpu_torch.render import plane_warp
 from future_urban_scene_generation_tpu_torch.render import rasterizer as rz
-from future_urban_scene_generation_tpu_torch.render import visibility as vis
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
 from future_urban_scene_generation_tpu_torch.utils import profiling
 
@@ -49,8 +43,6 @@ CROP = 256
 SKETCH_RES = 256
 # Resolution of the per-vehicle source-texture table the plane warp samples.
 SRC_TABLE = 512
-# Signed-LAB value of RGB black: L = 0, a = b = 128/255.
-LAB_BLACK_SIGNED = (-1.0, 2.0 * 128.0 / 255.0 - 1.0, 2.0 * 128.0 / 255.0 - 1.0)
 
 
 class CadBank(NamedTuple):
@@ -111,10 +103,6 @@ def _maybe_flip_rgb(spec: ModelSpec, img):
 
 def _to_signed_lab(rgb01):
     return cs.rgb_to_lab(rgb01) * 2.0 - 1.0
-
-
-def _lab_black(device):
-    return torch.tensor(LAB_BLACK_SIGNED, dtype=torch.float32, device=device)
 
 
 def perceive(models: Models, spec: ModelSpec, frame, bboxes) -> Perception:
@@ -210,142 +198,26 @@ def render_vehicle(vertices, corners, corner_normals, extrinsic, intrinsic, thet
     return sketch, ~bg, window
 
 
-def _inside_poly(pts_x, pts_y, poly):
-    """Even-odd point-in-polygon of points (N, a, b) against polygons (N, K, 2)."""
-    inside = torch.zeros(pts_x.shape, dtype=torch.bool, device=pts_x.device)
-    k = poly.shape[1]
-    for e in range(k):
-        x1 = poly[:, e, 0, None, None]
-        y1 = poly[:, e, 1, None, None]
-        x2 = poly[:, (e + 1) % k, 0, None, None]
-        y2 = poly[:, (e + 1) % k, 1, None, None]
-        straddle = (y1 > pts_y) != (y2 > pts_y)
-        denom = torch.where(y2 == y1, torch.ones_like(y1), y2 - y1)
-        x_cross = x1 + (pts_y - y1) * (x2 - x1) / denom
-        inside = inside ^ (straddle & (pts_x < x_cross))
-    return inside
-
-
 def warp_planes_to_crop(spec: ModelSpec, src_table, src_window: cr.Window, src_polys,
                         dst_polys, src_vis, dst_vis, dst_window: cr.Window,
                         table_index) -> torch.Tensor:
-    """Warped texture planes in dst-crop coordinates, N vehicle-steps at once.
+    """Warped texture planes in dst-crop coordinates, N vehicle-steps at once, through
+    ``fusg::plane_warp`` (render/plane_warp.py): the plain warp on CPU tensors, kernel W1
+    on CUDA tensors.
 
     src_table (V, T, T, 3) signed-LAB source window of each vehicle (any float
     dtype; sampled in float32); src_window fields (V,); src_polys / dst_polys
     (N, 5, 6, 2) plane polygons (TEXTURE_PLANES topology: roof/front/back are
     4-point quads padded to 6); src_vis / dst_vis (N, 5) bool; dst_window
-    fields (N,); table_index (N,) the vehicle of each row. For crop pixel q:
-    frame point p = window(q), source point s = H^-1(p), value = table(s) if s
-    lies in the source polygon. Skip/symmetry rules as warp_unwarp_planes
-    (warp_learn/planes_utils.py:46-68). Returns (N, 5, S, S, 3) signed LAB.
+    fields (N,); table_index (N,) the vehicle of each row. The grid is
+    ``spec.warp_plane_res`` (256: exact; below: an r^2 grid pasted into the crop), the
+    4-gons' homography closed-form where ``spec.quad_homography``. Skip/symmetry rules
+    as warp_unwarp_planes (warp_learn/planes_utils.py:46-68). Returns (N, 5, S, S, 3)
+    signed LAB.
     """
-    s_res = SKETCH_RES
-    dev = dst_polys.device
-    n = dst_polys.shape[0]
-    ar = torch.arange(n, device=dev)
-    black = _lab_black(dev)
-    table = src_table.shape[1]
-    left, right = vis.SYMMETRY_PAIR
-    front, back = vis.OPPOSITE_PAIR
-    r = int(spec.warp_plane_res)
-    sx0 = src_window.x_start[table_index][:, None, None]
-    sy0 = src_window.y_start[table_index][:, None, None]
-    sw = src_window.w[table_index][:, None, None]
-    sh = src_window.h[table_index][:, None, None]
-
-    dx0 = dst_window.x_start[:, None, None]
-    dy0 = dst_window.y_start[:, None, None]
-    qs = (torch.arange(s_res, dtype=torch.float32, device=dev) + 0.5) / s_res
-    px = torch.broadcast_to(dx0 + qs[None, None, :] * dst_window.w[:, None, None] - 0.5,
-                            (n, s_res, s_res))
-    py = torch.broadcast_to(dy0 + qs[None, :, None] * dst_window.h[:, None, None] - 0.5,
-                            (n, s_res, s_res))
-
-    # The reduced grid's two steps are spans of their own, children of the runner's
-    # ``fusg.plane_warp``: the homography and the r^2 sample, then the paste into the
-    # crop. The exact 256^2 warp opens none.
-    reduced = r != s_res
-
-    def sample(hi, sp, gx, gy):
-        denom = hi[:, 2, 0] * gx + hi[:, 2, 1] * gy + hi[:, 2, 2]
-        denom = torch.where(torch.abs(denom) < 1e-12, torch.full_like(denom, 1e-12), denom)
-        sx = (hi[:, 0, 0] * gx + hi[:, 0, 1] * gy + hi[:, 0, 2]) / denom
-        sy = (hi[:, 1, 0] * gx + hi[:, 1, 1] * gy + hi[:, 1, 2]) / denom
-        tx = (sx - sx0 + 0.5) * (table / sw) - 0.5
-        ty = (sy - sy0 + 0.5) * (table / sh) - 0.5
-        tex = bilinear_sample(src_table, tx, ty, table_index)
-        mask = _inside_poly(sx, sy, sp)
-        return torch.where(mask[..., None], tex, black)
-
-    def warp_one(src_idx, dst_idx, extra_skip, quad=False):
-        sp = src_polys[ar, src_idx]
-        dp = dst_polys[ar, dst_idx]
-        with profiling.trace("fusg.plane_warp.sample") if reduced else contextlib.nullcontext():
-            if quad and spec.quad_homography:
-                h12, valid = find_homography_quad(sp[:, :4], dp[:, :4])
-            else:
-                h12, valid = find_homography(sp, dp)
-            hi = torch.linalg.inv_ex(h12).inverse[:, :, :, None, None]  # (N, 3, 3, 1, 1)
-            if not reduced:
-                tex = sample(hi, sp, px, py)
-            else:
-                pad = 1.0
-                bx0 = dp[..., 0].amin(-1) - pad
-                bx1 = dp[..., 0].amax(-1) + pad
-                by0 = dp[..., 1].amin(-1) - pad
-                by1 = dp[..., 1].amax(-1) + pad
-                bw = torch.clamp(bx1 - bx0, min=1e-3)
-                bh = torch.clamp(by1 - by0, min=1e-3)
-                qs_r = (torch.arange(r, dtype=torch.float32, device=dev) + 0.5) / r
-                gx = torch.broadcast_to(
-                    bx0[:, None, None] + qs_r[None, None, :] * bw[:, None, None], (n, r, r))
-                gy = torch.broadcast_to(
-                    by0[:, None, None] + qs_r[None, :, None] * bh[:, None, None], (n, r, r))
-                rel = sample(hi, sp, gx, gy) - black
-        if reduced:
-            with profiling.trace("fusg.plane_warp.paste"):
-                ax = s_res / dst_window.w
-                ay = s_res / dst_window.h
-                b_x = -ax * dst_window.x_start + 0.5 * ax - 0.5
-                b_y = -ay * dst_window.y_start + 0.5 * ay - 0.5
-                scale = torch.stack([ay * bh / r, ax * bw / r], dim=-1)
-                translation = torch.stack([ay * by0 + b_y, ax * bx0 + b_x], dim=-1)
-                pasted = cr.scale_and_translate(rel, (s_res, s_res), scale, translation,
-                                                antialias=True)
-                tex = pasted + black
-
-        ok = valid & ~extra_skip
-        write = F.one_hot(dst_idx, vis.NUM_TEXTURE_PLANES).to(torch.float32)
-        write = (write * ok.to(torch.float32)[:, None])[:, :, None, None, None]
-        return tex, write
-
-    out = torch.broadcast_to(black, (n, vis.NUM_TEXTURE_PLANES, s_res, s_res, 3))
-
-    def idx(flag, a, b):
-        return torch.where(flag, torch.full_like(ar, a), torch.full_like(ar, b))
-
-    # Left/right are opposite faces: one warp, source = the src-visible side,
-    # slot = the dst-visible side.
-    side_skip = ~((src_vis[:, left] | src_vis[:, right]) & (dst_vis[:, left] | dst_vis[:, right]))
-    tex, write = warp_one(idx(src_vis[:, left], left, right),
-                          idx(dst_vis[:, left], left, right), side_skip)
-    out = out * (1.0 - write) + tex[:, None] * write
-
-    # Front/back share one warp too (front->front or back->back, never both).
-    fb_front = src_vis[:, front] & dst_vis[:, front]
-    fb_back = src_vis[:, back] & dst_vis[:, back]
-    fb_idx = idx(fb_front, front, back)
-    tex, write = warp_one(fb_idx, fb_idx, ~(fb_front | fb_back), quad=True)
-    out = out * (1.0 - write) + tex[:, None] * write
-
-    for i in range(vis.NUM_TEXTURE_PLANES):
-        if i in (left, right, front, back):
-            continue
-        skip = ~src_vis[:, i] | ~dst_vis[:, i]
-        tex, write = warp_one(torch.full_like(ar, i), torch.full_like(ar, i), skip, quad=True)
-        out = out * (1.0 - write) + tex[:, None] * write
-    return out
+    return plane_warp.warp_planes(src_table, src_window, src_polys, dst_polys, src_vis,
+                                  dst_vis, dst_window, table_index, res=spec.warp_plane_res,
+                                  out_res=SKETCH_RES, quad=spec.quad_homography)
 
 
 def central_crop_patch(frame, bbox_window: cr.Window):

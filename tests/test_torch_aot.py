@@ -6,7 +6,8 @@ The scene's parts are each exported and restored bit-equal to their live calls: 
 scene's PnP through ``fusg::pnp_cpc`` (one node), the plain LM loop through
 ``fusg::pnp_jacobian``, the generators and the composite through
 ``fusg::icn_stem_conv``, a render through ``fusg::rasterize_corners`` and an int8-tier
-conv through ``fusg::conv_int8_quantized``. Exporting the plain loop's 52 unrolled
+conv through ``fusg::conv_int8_quantized``; the whole scene holds its plane warp as one
+``fusg::plane_warp`` node. Exporting the plain loop's 52 unrolled
 iterations takes about a minute on a CPU (20,000 graph nodes), so its test cuts
 ``_MAX_ITERS`` to 2, four iterations (the Jacobian's operator and the loop's arithmetic
 are what it holds);
@@ -422,7 +423,8 @@ def test_run_scene_restored_equals_live(tiny_scene, scene_artifact):
     """The restored scene equals the live ``run_scene`` at tests/test_aot.py:193's
     atol of 2e-5 (the live path is held to the JAX package by
     tests/test_torch_pipeline.py), ``cad_idx`` equal; the graph holds the kernels'
-    and the scene's PnP's operators and no grad-mode switch."""
+    operators, the scene's PnP and its plane warp (one node each) and no grad-mode
+    switch."""
     _, spec, _, _ = tiny_scene
     args, directory, _ = scene_artifact
     run = aot.lookup_run_scene(*args, spec=spec, vis_res=96, directory=directory)
@@ -431,7 +433,8 @@ def test_run_scene_restored_equals_live(tiny_scene, scene_artifact):
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=2e-5, equal_nan=True)
     assert torch.equal(got.cad_idx, want.cad_idx)
-    assert _fusg_nodes(run) == {"rasterize_corners": 1, "icn_stem_conv": 1, "pnp_cpc": 1}
+    assert _fusg_nodes(run) == {"rasterize_corners": 1, "icn_stem_conv": 1, "pnp_cpc": 1,
+                                "plane_warp": 1}
     assert _graph_has_no_grad_switch(run)
 
 
