@@ -35,18 +35,9 @@ from future_urban_scene_generation_tpu_torch.models import layers
 from future_urban_scene_generation_tpu_torch.ops import cuda_conv, cuda_raster
 from future_urban_scene_generation_tpu_torch.pipeline import aot, runner, stages, synthetic
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
+import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_intra_op_threads():
-    """The exports trace on the host; two threads an op keep this file from
-    oversubscribing the machine beside the other test workers."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _jax_toy(d, x):
@@ -448,7 +439,6 @@ def test_run_scene_restores_in_a_fresh_process(tiny_scene, scene_artifact, tmp_p
     out = tmp_path / "frames.pt"
     code = (
         "import sys, torch\n"
-        "torch.set_num_threads(2)\n"
         "from future_urban_scene_generation_tpu_torch.pipeline import aot, synthetic\n"
         "from future_urban_scene_generation_tpu_torch.spec import ModelSpec\n"
         "spec = ModelSpec(warp_plane_res=96)\n"

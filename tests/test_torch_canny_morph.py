@@ -22,6 +22,7 @@ from future_urban_scene_generation_tpu.ops import morphology as jmo
 from future_urban_scene_generation_tpu_torch.ops import canny as cn
 from future_urban_scene_generation_tpu_torch.ops import colorspace as cs
 from future_urban_scene_generation_tpu_torch.ops import morphology as mo
+import torch_threads  # noqa: F401
 
 CANNY_BUDGET = 0.002  # tests/test_crop_canny_morph.py:166
 

@@ -24,6 +24,7 @@ import torch
 from future_urban_scene_generation_tpu.ops import pallas_conv
 from future_urban_scene_generation_tpu_torch.models import layers
 from future_urban_scene_generation_tpu_torch.ops import cuda_conv
+import torch_threads  # noqa: F401
 
 SHAPES = {  # (n, hp, wp, c, k, o, rows of the Pallas kernel)
     "stem7": (2, 22, 26, 21, 7, 16, 8),  # tests/test_layers.py:222-224

@@ -22,6 +22,7 @@ from future_urban_scene_generation_tpu_torch.models.vunet import Vunet
 from future_urban_scene_generation_tpu_torch.ops import cuda_conv
 from future_urban_scene_generation_tpu_torch.pipeline import stages
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
+import torch_threads  # noqa: F401
 
 SHAPES = [  # (n, hp, wp, c, k, o, rows) of tests/test_layers.py:222-224
     (2, 22, 26, 21, 7, 16, 8),

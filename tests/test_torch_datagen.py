@@ -18,6 +18,7 @@ from future_urban_scene_generation_tpu.utils import mesh as jmu
 from future_urban_scene_generation_tpu_torch.pipeline import datagen, runner
 from future_urban_scene_generation_tpu_torch.utils import mesh as mu
 from future_urban_scene_generation_tpu_torch.utils import profiling
+import torch_threads  # noqa: F401
 
 K = np.float32([[600.0, 0, 320], [0, 600.0, 180], [0, 0, 1]])
 FRAME_HW = (360, 640)

@@ -20,6 +20,7 @@ from future_urban_scene_generation_tpu.models import maskrcnn as jmr
 from future_urban_scene_generation_tpu.ops import detection as jdet
 from future_urban_scene_generation_tpu_torch.models import maskrcnn as mr
 from future_urban_scene_generation_tpu_torch.ops import detection as det
+import torch_threads  # noqa: F401
 
 
 def _boxes(rng, n, extent=100.0):

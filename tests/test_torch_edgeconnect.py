@@ -28,19 +28,10 @@ from future_urban_scene_generation_tpu_torch.models import convert, edgeconnect,
 from future_urban_scene_generation_tpu_torch.models.maskrcnn import MaskRCNN
 from future_urban_scene_generation_tpu_torch.pipeline import checkpoint, inpaint
 from torch_refs import _t_ec_generator
+import torch_threads  # noqa: F401
 
 GEN_TOL = 2e-3  # tests/test_edgeconnect.py:30
 CANNY_BUDGET = 0.002  # tests/test_crop_canny_morph.py:166
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Full-width 256^2 generators: cap torch's intra-op threads (the tier runs six
-    workers on the machine's cores)."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
 
 
 @pytest.fixture(scope="module")

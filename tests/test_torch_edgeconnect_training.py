@@ -33,20 +33,12 @@ from future_urban_scene_generation_tpu.pipeline import training as jtraining
 from future_urban_scene_generation_tpu_torch.cli import export_zoo
 from future_urban_scene_generation_tpu_torch.models import convert, edgeconnect, layers, vgg
 from future_urban_scene_generation_tpu_torch.pipeline import checkpoint, datagen, training
+import torch_threads  # noqa: F401
 
 HW, BATCH, BLOCKS = 32, 2, 1
 CONVT = jec.EDGECONNECT_CONVT_KEYS
 CANNY_BUDGET = 0.002  # tests/test_crop_canny_morph.py:166
 TEMPLATE = json.loads((Path(__file__).parent / "fixtures" / "zoo_template.json").read_text())
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """The tier runs six workers on the machine's cores: cap torch's intra-op threads."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
 
 
 def _np(tree):

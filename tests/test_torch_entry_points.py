@@ -17,6 +17,7 @@ from future_urban_scene_generation_tpu_torch.pipeline import tracking
 from future_urban_scene_generation_tpu_torch.pipeline import runner, stages, synthetic, training
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
 from future_urban_scene_generation_tpu_torch.utils.native import read_png
+import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "future_urban_scene_generation_tpu_torch"

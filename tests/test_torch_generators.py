@@ -18,6 +18,7 @@ from future_urban_scene_generation_tpu_torch.models import convert
 from future_urban_scene_generation_tpu_torch.ops import crop as cr
 from future_urban_scene_generation_tpu_torch.pipeline import stages
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
+import torch_threads  # noqa: F401
 
 ATOL = 2e-3
 

@@ -29,6 +29,7 @@ from future_urban_scene_generation_tpu_torch.ops import crop as tcr
 from future_urban_scene_generation_tpu_torch.pipeline import runner, stages, synthetic
 from future_urban_scene_generation_tpu_torch.render import visibility as tvis
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
+import torch_threads  # noqa: F401
 
 
 def _t(a):

@@ -21,6 +21,7 @@ from future_urban_scene_generation_tpu_torch.gui import app as gui_app
 from future_urban_scene_generation_tpu_torch.gui import web
 from future_urban_scene_generation_tpu_torch.pipeline import service as service_mod
 from future_urban_scene_generation_tpu_torch.utils.native import decode_png, encode_png
+import torch_threads  # noqa: F401
 
 FRAME_HW = (120, 160)
 

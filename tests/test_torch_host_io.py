@@ -14,6 +14,7 @@ from future_urban_scene_generation_tpu.utils import native as jnative
 from future_urban_scene_generation_tpu.utils import video as jvideo
 from future_urban_scene_generation_tpu_torch.geometry import gps
 from future_urban_scene_generation_tpu_torch.utils import bbox, native, video
+import torch_threads  # noqa: F401
 
 
 def test_bounding_box_truncation_order():

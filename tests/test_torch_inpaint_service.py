@@ -25,16 +25,9 @@ from future_urban_scene_generation_tpu_torch.pipeline import checkpoint, inpaint
 from future_urban_scene_generation_tpu_torch.utils.native import read_png, write_png
 from test_torch_service_cli import H, W, _Captured, _configs, _JaxHostService, dataset  # noqa: F401
 from torch_refs import _t_ec_generator
+import torch_threads  # noqa: F401
 
 GEN_TOL = 2e-3  # tests/test_edgeconnect.py:30
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
 
 
 @pytest.fixture(scope="module")

@@ -53,16 +53,9 @@ from future_urban_scene_generation_tpu_torch.ops import cuda_conv
 from future_urban_scene_generation_tpu_torch.pipeline import runner, stages, synthetic
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
 from torch_refs import _t_ec_generator
+import torch_threads  # noqa: F401
 
 QUANT = ModelSpec(quantized_convs=True)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
 
 
 @pytest.fixture()

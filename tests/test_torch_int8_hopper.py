@@ -16,6 +16,7 @@ import torch
 
 from future_urban_scene_generation_tpu_torch.models import layers
 from future_urban_scene_generation_tpu_torch.ops import cuda_conv
+import torch_threads  # noqa: F401
 
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 

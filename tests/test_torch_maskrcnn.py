@@ -23,6 +23,7 @@ from future_urban_scene_generation_tpu_torch.models.detector import MaskRCNNSegm
 from future_urban_scene_generation_tpu_torch.pipeline import checkpoint
 from future_urban_scene_generation_tpu_torch.pipeline import tracking as trk
 from test_maskrcnn import TMaskRCNN
+import torch_threads  # noqa: F401
 
 SMALL = dict(num_classes=5, layers=(1, 1, 1, 1), width=8, out_channels=16,
              representation_size=32)

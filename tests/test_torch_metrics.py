@@ -8,6 +8,7 @@ import torch
 
 from future_urban_scene_generation_tpu.ops import metrics as jm
 from future_urban_scene_generation_tpu_torch.ops import metrics as M
+import torch_threads  # noqa: F401
 
 rng = np.random.RandomState(40)
 

@@ -27,6 +27,7 @@ from future_urban_scene_generation_tpu_torch.models.vgg import VGG19Classifier
 from future_urban_scene_generation_tpu_torch.models.vunet import Vunet
 from future_urban_scene_generation_tpu_torch.pipeline import stages
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
+import torch_threads  # noqa: F401
 
 ATOL = 2e-3
 

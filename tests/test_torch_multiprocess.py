@@ -27,6 +27,7 @@ from future_urban_scene_generation_tpu_torch.pipeline.training import (
     instance_norm_fed_biases,
 )
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
+import torch_threads  # noqa: F401
 
 WORLD = 4
 SCENE_MESHES = ((2, 2), (4, 1))
@@ -104,7 +105,6 @@ def _step_case(trainer, mesh, ref_state, ref_metrics):
 
 
 def _rank_main(rank, port, scene, weights, queue):
-    torch.set_num_threads(1)
     models = stages.Models.build(SPEC, device="cpu")
     for net, sd in zip(models, weights):
         net.load_state_dict(sd)
@@ -145,15 +145,10 @@ def cluster():
     weights = [net.state_dict() for net in scene.models]
     ranks = mp.spawn(_rank_main, args=(_free_port(), scene._replace(models=None), weights,
                                        queue), nprocs=WORLD, join=False)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(min(threads, 4))  # beside the four one-thread ranks
-    try:
-        with torch.no_grad():
-            ref = runner.run_scene(scene.models, scene.cad_bank, scene.frame,
-                                   scene.background, scene.bboxes, scene.meters,
-                                   scene.intrinsic, spec=SPEC)
-    finally:
-        torch.set_num_threads(threads)
+    with torch.no_grad():
+        ref = runner.run_scene(scene.models, scene.cad_bank, scene.frame,
+                               scene.background, scene.bboxes, scene.meters,
+                               scene.intrinsic, spec=SPEC)
     # Read the results while the ranks run: a rank's put blocks until they are read.
     results, deadline = {}, time.monotonic() + 600
     try:

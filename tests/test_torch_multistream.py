@@ -13,21 +13,11 @@ from future_urban_scene_generation_tpu_torch.pipeline import runner, stages, str
 from future_urban_scene_generation_tpu_torch.pipeline import tracking as trk
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
 from future_urban_scene_generation_tpu_torch.utils import mesh as mu
+import torch_threads  # noqa: F401
 
 H, W = 120, 160
 K = np.array([[150.0, 0, W / 2], [0, 150.0, H / 2], [0, 0, 1]], dtype=np.float32)
 SPEC = ModelSpec(warp_plane_res=96)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_intra_op_threads():
-    """Two Python threads that each fan every op out over all cores oversubscribe
-    the machine (OpenMP teams spin against each other); two threads an op suffice
-    at these sizes."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

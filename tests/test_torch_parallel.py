@@ -30,6 +30,7 @@ from future_urban_scene_generation_tpu_torch.pipeline import runner, streaming
 from future_urban_scene_generation_tpu_torch.pipeline.training import ICNTrainer
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
 from future_urban_scene_generation_tpu_torch.utils import mesh as mu
+import torch_threads  # noqa: F401
 
 
 @contextlib.contextmanager

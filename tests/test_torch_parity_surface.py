@@ -37,6 +37,7 @@ from future_urban_scene_generation_tpu_torch.pipeline import runner, stages, syn
 from future_urban_scene_generation_tpu_torch.render import planes, visibility
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
 from future_urban_scene_generation_tpu_torch.utils import profiling
+import torch_threads  # noqa: F401
 
 K = np.array([[800.0, 0, 320], [0, 800.0, 240], [0, 0, 1]], dtype=np.float32)
 

@@ -26,6 +26,7 @@ from future_urban_scene_generation_tpu.pipeline import stages as jstages
 from future_urban_scene_generation_tpu_torch.models import convert
 from future_urban_scene_generation_tpu_torch.pipeline import runner, stages, synthetic
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
+import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "future_urban_scene_generation_tpu_torch"
@@ -174,7 +175,6 @@ def test_port_runs_with_jax_unimportable():
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import torch\n"
-        "torch.set_num_threads(2)\n"
         "from future_urban_scene_generation_tpu_torch.pipeline import runner, stages, synthetic\n"
         "from future_urban_scene_generation_tpu_torch.spec import ModelSpec\n"
         "sc = synthetic.make_oracle_scene(hw=(96, 128), with_bad_vehicle=False)\n"

@@ -43,6 +43,7 @@ from future_urban_scene_generation_tpu_torch.render import plane_warp
 from future_urban_scene_generation_tpu_torch.render import visibility as vis
 from future_urban_scene_generation_tpu_torch.spec import SERVING_SPEC, ModelSpec
 from future_urban_scene_generation_tpu_torch.utils import mesh as mu
+import torch_threads  # noqa: F401
 
 FOCAL, CENTER = 1400.0, (640.0, 360.0)
 # Planes a few pixels wide (a far vehicle's, read off a benchmark scene): near-singular

@@ -28,6 +28,7 @@ from future_urban_scene_generation_tpu_torch.geometry.rotations import (
     z_rot,
 )
 from future_urban_scene_generation_tpu_torch.utils import mesh as mu
+import torch_threads  # noqa: F401
 
 FOCAL, CENTER = 1400.0, (640.0, 360.0)  # the scene cells' camera at 720x1280
 

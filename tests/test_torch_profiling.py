@@ -6,6 +6,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from future_urban_scene_generation_tpu_torch.utils import profiling
+import torch_threads  # noqa: F401
 
 
 def _new_spans(before):

@@ -16,6 +16,7 @@ from future_urban_scene_generation_tpu.ops import pallas_raster as pr
 from future_urban_scene_generation_tpu.render import rasterizer as jrz
 from future_urban_scene_generation_tpu.utils import mesh as jmu
 from future_urban_scene_generation_tpu_torch.ops import cuda_raster as cr
+import torch_threads  # noqa: F401
 
 
 def _random_scene(n_verts=40, n_tris=60, seed=31):

@@ -19,6 +19,7 @@ import torch
 from future_urban_scene_generation_tpu.ops import pallas_raster as pr
 from future_urban_scene_generation_tpu.utils import mesh as jmu
 from future_urban_scene_generation_tpu_torch.ops import cuda_raster as cr
+import torch_threads  # noqa: F401
 
 BIG = np.float32(1e30)
 

@@ -20,6 +20,7 @@ from future_urban_scene_generation_tpu.utils import mesh as jmu
 from future_urban_scene_generation_tpu_torch.geometry.rotations import x_rot, z_rot
 from future_urban_scene_generation_tpu_torch.ops import cuda_raster as cr
 from future_urban_scene_generation_tpu_torch.render import rasterizer as rz
+import torch_threads  # noqa: F401
 
 
 def _random_scene(n_verts, n_tris, seed=31):

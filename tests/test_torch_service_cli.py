@@ -22,6 +22,7 @@ from future_urban_scene_generation_tpu_torch.cli import run_test
 from future_urban_scene_generation_tpu_torch.config import PipelineConfig
 from future_urban_scene_generation_tpu_torch.pipeline import aot, runner, service
 from future_urban_scene_generation_tpu_torch.utils.native import read_png
+import torch_threads  # noqa: F401
 
 H, W = 240, 320
 

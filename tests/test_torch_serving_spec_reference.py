@@ -23,6 +23,7 @@ from perfbench.reference.pipeline import runner as ref_runner
 from perfbench.reference.pipeline.stages import Models as RefModels
 from perfbench.reference.spec import ModelSpec as RefSpec
 from perfbench.traffic import scenes
+import torch_threads  # noqa: F401
 
 SEED = 2**31 + 18
 CONFIG = {"frame_hw": [96, 128], "steps": 2, "cads": 2, "cad_subdiv": 2, "cad_scale": 5.0}
@@ -39,9 +40,7 @@ TOL = 1e-3
 @pytest.fixture(scope="module")
 def sides():
     """Both sides' networks with one set of seeded state dicts, the CAD banks and the
-    scene's inputs; torch's intra-op threads capped for the module."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    scene's inputs."""
     rng = np.random.default_rng(weights.sub_seed(SEED, "traffic"))
     meshes = scenes.cad_meshes(CONFIG["cads"], CONFIG["cad_subdiv"])
     sc = scenes.make_pool(TRAFFIC, CONFIG, [k for _, k in meshes], rng)[0]
@@ -58,9 +57,8 @@ def sides():
     banks = [rn.build_cad_bank([m for m, _ in meshes], [k for _, k in meshes],
                                scale=CONFIG["cad_scale"], device="cpu")
              for rn in (runner, ref_runner)]
-    yield {"port": (runner, port, banks[0], ModelSpec),
-           "reference": (ref_runner, ref, banks[1], RefSpec), "inputs": inputs}
-    torch.set_num_threads(threads)
+    return {"port": (runner, port, banks[0], ModelSpec),
+            "reference": (ref_runner, ref, banks[1], RefSpec), "inputs": inputs}
 
 
 def _fields(spec):

@@ -13,6 +13,7 @@ import torch
 
 from future_urban_scene_generation_tpu.ops.pallas_conv import icn_stem_conv_fused
 from future_urban_scene_generation_tpu_torch.ops import cuda_conv
+import torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("v,s,h,w,p,k,o,pad", [

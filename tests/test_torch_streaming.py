@@ -17,6 +17,7 @@ from future_urban_scene_generation_tpu_torch.pipeline import tracking as trk
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
 from future_urban_scene_generation_tpu_torch.utils import mesh as mu
 from future_urban_scene_generation_tpu_torch.utils import profiling
+import torch_threads  # noqa: F401
 
 H, W = 120, 160
 K = np.array([[150.0, 0, W / 2], [0, 150.0, H / 2], [0, 0, 1]], dtype=np.float32)

@@ -12,6 +12,7 @@ import torch
 
 from future_urban_scene_generation_tpu.pipeline import tracking as jtrk
 from future_urban_scene_generation_tpu_torch.pipeline import tracking as trk
+import torch_threads  # noqa: F401
 
 
 def _frame_with_boxes(h, w, boxes, value=1.0):

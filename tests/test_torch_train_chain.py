@@ -21,15 +21,7 @@ from future_urban_scene_generation_tpu_torch.pipeline import checkpoint, trainin
 from future_urban_scene_generation_tpu_torch.pipeline.service import InpaintModels
 from future_urban_scene_generation_tpu_torch.pipeline.stages import Models
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Full-width networks: cap torch's intra-op threads (six workers share the cores)."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
+import torch_threads  # noqa: F401
 
 
 def _train(tmp_path, model, size, batch, extra=()):

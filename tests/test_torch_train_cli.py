@@ -14,16 +14,7 @@ from future_urban_scene_generation_tpu_torch.cli import train as cli_train
 from future_urban_scene_generation_tpu_torch.pipeline import checkpoint, training
 from future_urban_scene_generation_tpu_torch.pipeline.stages import Models
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_intra_op_threads():
-    """The whole suite runs in several worker processes at once; a few threads an op
-    keep this file's full-width networks from oversubscribing the machine."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
+import torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("model,field,size", [

@@ -53,19 +53,10 @@ from future_urban_scene_generation_tpu_torch.models import convert
 from future_urban_scene_generation_tpu_torch.ops import heatmap
 from future_urban_scene_generation_tpu_torch.ops.resize import resize_linear
 from future_urban_scene_generation_tpu_torch.pipeline import training
+import torch_threads  # noqa: F401
 
 LR = 1e-3
 HG = 128
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_intra_op_threads():
-    """The whole suite runs in several worker processes at once; a few threads an op
-    keep this file's full-width networks from oversubscribing the machine."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _np_tree(tree):

@@ -32,6 +32,7 @@ from future_urban_scene_generation_tpu_torch.pipeline import checkpoint, trainin
 from future_urban_scene_generation_tpu_torch.pipeline.stages import Models
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
 from future_urban_scene_generation_tpu_torch.utils import profiling
+import torch_threads  # noqa: F401
 
 HW, NDF = 32, 8
 

@@ -17,6 +17,7 @@ from future_urban_scene_generation_tpu_torch.config import EdgeConnectConfig
 from future_urban_scene_generation_tpu_torch.utils import keypoints as kp
 from future_urban_scene_generation_tpu_torch.utils import mesh
 from future_urban_scene_generation_tpu_torch.utils import yamlite
+import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -20,6 +20,7 @@ from future_urban_scene_generation_tpu_torch.pipeline import checkpoint
 from future_urban_scene_generation_tpu_torch.pipeline.stages import Models
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
 from test_torch_models import ATOL, _forward_pair
+import torch_threads  # noqa: F401
 
 
 def _template(module):
