@@ -10,7 +10,7 @@ All images are float32 RGB in [0, 1], NHWC.
   rollout     trajectory -> per-step rigid motions             (batch V)
   render      posed sketches, one kernel-K1 launch             (batch N)
   warp        plane textures in dst-crop coordinates, W1       (batch N)
-  generate    ICN (stem = kernel K2) and VUNet                 (batch N)
+  generate    ICN (stem = kernel K2) and VUNet (CUDA graphs)   (batch N)
   composite   masked stitch into the background, vehicle order (batch 2S)
 """
 from __future__ import annotations
@@ -32,6 +32,7 @@ from future_urban_scene_generation_tpu_torch.models.vunet import Vunet
 from future_urban_scene_generation_tpu_torch.ops import colorspace as cs
 from future_urban_scene_generation_tpu_torch.ops import crop as cr
 from future_urban_scene_generation_tpu_torch.ops import cuda_conv
+from future_urban_scene_generation_tpu_torch.pipeline import graphs
 from future_urban_scene_generation_tpu_torch.render import plane_warp
 from future_urban_scene_generation_tpu_torch.render import rasterizer as rz
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
@@ -43,6 +44,9 @@ CROP = 256
 SKETCH_RES = 256
 # Resolution of the per-vehicle source-texture table the plane warp samples.
 SRC_TABLE = 512
+# The span around each replay of a VUNet pass, a child of the runner's
+# ``fusg.vunet_encode`` / ``fusg.vunet_decode``.
+VUNET_REPLAY = "fusg.vunet.replay"
 
 
 class CadBank(NamedTuple):
@@ -282,26 +286,40 @@ def vunet_synthesize(models: Models, spec: ModelSpec, dst_sketch, mu_app):
     return vunet_decode_batch(models, spec, dst_sketch[None], mu_app)[0]
 
 
-def vunet_encode_appearance_batch(models: Models, spec: ModelSpec, frame, src_sketches,
-                                  src_masks, src_windows: cr.Window) -> List[torch.Tensor]:
-    """Appearance means for V vehicles: x = [masked vehicle RGB on white, source
-    sketch], both in [-1, 1] (trajectory_inference.py:205-231)."""
+def _vunet_encode(vunet: Vunet, spec: ModelSpec, frame, src_sketches, src_masks,
+                  src_windows: cr.Window) -> List[torch.Tensor]:
     veh = _maybe_flip_rgb(spec, cr.crop_resize(frame, src_windows, CROP))
     masked = torch.where(src_masks[..., None], veh, torch.ones_like(veh))
     sketches = _maybe_flip_rgb(spec, src_sketches)
     x = torch.cat([masked * 2.0 - 1.0, sketches * 2.0 - 1.0], dim=-1).to(spec.gen_dtype)
+    return vunet.encode_appearance(x)
+
+
+def vunet_encode_appearance_batch(models: Models, spec: ModelSpec, frame, src_sketches,
+                                  src_masks, src_windows: cr.Window) -> List[torch.Tensor]:
+    """Appearance means for V vehicles: x = [masked vehicle RGB on white, source
+    sketch], both in [-1, 1] (trajectory_inference.py:205-231). On the card with grad
+    off the stage, its crop included, replays a captured CUDA graph
+    (``pipeline/graphs.py``)."""
     # The int8 tier leaves VUNet float (layers.suppress_quantization), as JAX :653-657.
     with layers.suppress_quantization():
-        return models.vunet.encode_appearance(x)
+        return graphs.call(_vunet_encode, models.vunet, frame, src_sketches, src_masks,
+                           src_windows, span=VUNET_REPLAY, static=(spec,))
+
+
+def _vunet_decode(vunet: Vunet, spec: ModelSpec, dst_sketches, mu_app):
+    dtype = spec.gen_dtype
+    y_tilde = (_maybe_flip_rgb(spec, dst_sketches) * 2.0 - 1.0).to(dtype)
+    out = vunet.decode_shape(y_tilde, [m.to(dtype) for m in mu_app])
+    return torch.clamp((out.to(torch.float32) + 1.0) / 2.0, 0.0, 1.0)
 
 
 def vunet_decode_batch(models: Models, spec: ModelSpec, dst_sketches, mu_app):
-    """One batch-N VUNet shape decode; each ``mu_app`` entry has leading N."""
-    dtype = spec.gen_dtype
-    y_tilde = (_maybe_flip_rgb(spec, dst_sketches) * 2.0 - 1.0).to(dtype)
+    """One batch-N VUNet shape decode; each ``mu_app`` entry has leading N. On the card
+    with grad off the stage replays a captured CUDA graph (``pipeline/graphs.py``)."""
     with layers.suppress_quantization():  # JAX :674-678
-        out = models.vunet.decode_shape(y_tilde, [m.to(dtype) for m in mu_app])
-    return torch.clamp((out.to(torch.float32) + 1.0) / 2.0, 0.0, 1.0)
+        return graphs.call(_vunet_decode, models.vunet, dst_sketches, list(mu_app),
+                           span=VUNET_REPLAY, static=(spec,))
 
 
 def composite_frames(spec: ModelSpec, backgrounds, crops, windows: cr.Window, masks):

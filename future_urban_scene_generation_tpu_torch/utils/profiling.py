@@ -23,12 +23,12 @@ from typing import Callable, Dict, Hashable, List, NamedTuple, Optional
 import torch
 
 # The ring holds the newest RING_SPANS spans of the process. Sizing: a whole 51 s
-# window of each benchmarked workload, with its set-up: a served scene leaves 12 spans
-# (10 stages, its dispatch and its wait), 18 with the reduced-grid plane warp's sample
-# and paste spans (3 each), and takes 0.23-0.9 s on an H100, at most ~220 scenes and
-# ~4,000 spans a window; an ICN training step leaves 4 (``fusg.datagen`` and its three
-# children) every ~0.21 s, ~250 steps and ~1,000 spans. 16,384 spans hold four times
-# the larger, a few MB.
+# window of each benchmarked workload, with its set-up: a served scene leaves 14 spans
+# (10 stages, its dispatch, its wait and the two VUNet replays), 16 with the reduced-grid
+# plane warp's sample and paste spans, and takes ~0.09-0.9 s on an H100: the bf16 cell's
+# window holds ~500-600 scenes, ~9,000-10,000 spans; an ICN training step leaves 4
+# (``fusg.datagen`` and its three children) every ~0.21 s, ~250 steps and ~1,000 spans.
+# 16,384 spans hold the larger with room, a few MB.
 RING_SPANS = 16384
 
 
