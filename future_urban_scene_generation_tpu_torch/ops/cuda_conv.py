@@ -61,6 +61,7 @@ import torch
 import torch.nn.functional as F
 
 from future_urban_scene_generation_tpu_torch.ops import _kernels
+from future_urban_scene_generation_tpu_torch.utils import profiling
 
 LAUNCHES = 0
 SMALL_CIN_V2_LAUNCHES = 0
@@ -726,10 +727,13 @@ def conv_int8_quantized(x, w_hwio, out_dtype, *, flip: bool = False, stride: int
                         in_dilation: int = 1) -> torch.Tensor:
     """One conv on the int8 tier: x (N, H, W, C) and the HWIO weight in x's dtype
     (``flip``: flipped on its tap axes, a transposed conv's kernel) -> (N, Ho, Wo, O)
-    in ``out_dtype``, through ``fusg::conv_int8_quantized``. CPU tensors take the torch
-    composition (:func:`quantize_int8_plain`, then :func:`conv_int8`'s plain version);
-    CUDA tensors launch N3 then N2, or raise."""
+    in ``out_dtype``, through ``fusg::conv_int8_quantized``, inside a ``fusg.int8`` span
+    (the tier's host cost a call). CPU tensors take the torch composition
+    (:func:`quantize_int8_plain`, then :func:`conv_int8`'s plain version); CUDA tensors
+    launch N3 then N2, or raise."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"conv_int8_quantized: unsupported device {x.device}")
-    return _conv_int8_quantized_op(x, w_hwio, out_dtype, bool(flip), int(stride), int(pad_lo),
-                                   int(pad_hi), int(dilation), int(in_dilation))
+    with profiling.trace("fusg.int8"):
+        return _conv_int8_quantized_op(x, w_hwio, out_dtype, bool(flip), int(stride),
+                                       int(pad_lo), int(pad_hi), int(dilation),
+                                       int(in_dilation))
