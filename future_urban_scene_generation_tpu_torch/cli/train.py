@@ -136,7 +136,8 @@ def family_setup(model: str, *, seed: int, batch: int, lr: float, image_size: in
     draws one batch from the family's seeded data source and returns the arguments
     of ``trainer.train_step`` after the state. The one place that says what each
     family trains on. Each call is a ``fusg.datagen`` span whose request is the
-    batch's index."""
+    batch's index; on a card the maker runs on a stream of its own
+    (``datagen.on_own_stream``)."""
     import itertools
 
     import torch
@@ -148,6 +149,7 @@ def family_setup(model: str, *, seed: int, batch: int, lr: float, image_size: in
 
     def traced(make):
         index = itertools.count()
+        make = datagen.on_own_stream(make, device)
 
         @torch.no_grad()
         def make_batch():

@@ -20,6 +20,9 @@ two:
   images, for the EdgeConnect trainers).
 
 A test can therefore feed the JAX package's own draws to the pair makers.
+:func:`on_own_stream` runs a family's maker on a CUDA stream of its own (the trainers'
+``make_batch``), so that its stream syncs wait for its own kernels and not for the train
+step's queue.
 Samples are float32 NHWC. ICN, signed LAB ([-1, 1]): x = [dst sketch (3) | central
 prior (3) | 5 warped planes (15)], y = the dst view of the textured vehicle, masked.
 VUNet, [-1, 1]: y_tilde = dst sketch, x_app = [masked vehicle crop | src sketch],
@@ -33,17 +36,23 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.utils._pytree import tree_flatten
 
 from future_urban_scene_generation_tpu_torch.geometry.projection import project_points_extrinsic
 from future_urban_scene_generation_tpu_torch.geometry.rotations import x_rot, z_rot
 from future_urban_scene_generation_tpu_torch.ops import canny as cn
 from future_urban_scene_generation_tpu_torch.ops import colorspace as cs
 from future_urban_scene_generation_tpu_torch.ops import crop as cr
-from future_urban_scene_generation_tpu_torch.pipeline import stages
+from future_urban_scene_generation_tpu_torch.pipeline import graphs, stages
 from future_urban_scene_generation_tpu_torch.pipeline.stages import CadBank
 from future_urban_scene_generation_tpu_torch.render import visibility as vis
 from future_urban_scene_generation_tpu_torch.spec import ModelSpec
 from future_urban_scene_generation_tpu_torch.utils import profiling
+
+
+STREAM_BATCHES = 0  # batches made on a maker's own CUDA stream (:func:`on_own_stream`)
+# A stream priority past any device's highest: torch maps it to the highest there is.
+_HIGHEST_PRIORITY = -(1 << 16)
 
 
 class ICNSample(NamedTuple):
@@ -271,3 +280,52 @@ def edgeconnect_batch(generator: torch.Generator, images, sigma: float = 2.0
     """:func:`edgeconnect_draws` then :func:`edgeconnect_pairs`."""
     return edgeconnect_pairs(images, *edgeconnect_draws(generator, images.shape[0],
                                                         images.shape[1:3]), sigma=sigma)
+
+
+class _OwnStream:
+    """``make`` on a stream of its own; see :func:`on_own_stream`."""
+
+    def __init__(self, make, device: torch.device):
+        self.make, self.device = make, device
+        self.stream = self.done = None
+
+    def __call__(self):
+        global STREAM_BATCHES
+        if not graphs.untraced():
+            return self.make()
+        caller = torch.cuda.current_stream(self.device)
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(self.device, priority=_HIGHEST_PRIORITY)
+            self.stream.wait_stream(caller)  # the data source's uploads; never again
+            self.done = torch.cuda.Event()
+        with profiling.trace("fusg.datagen.stream"), torch.cuda.stream(self.stream):
+            out = self.make()
+            self.done.record(self.stream)
+        caller.wait_event(self.done)
+        for t in tree_flatten(out)[0]:
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                t.record_stream(caller)
+        STREAM_BATCHES += 1
+        return out
+
+
+def on_own_stream(make, device):
+    """``make`` (a family's batch maker: no arguments, a tuple of tensors and other
+    values) run on a CUDA stream of its own, so that its stream syncs (the pageable upload
+    of the draws, the visibility tables, the homographies' ``eigh`` check) wait for its own
+    kernels only, and the host makes the next batch while the card still runs the step.
+    A device-wide sync still waits for every stream: MAGMA's batched ``cholesky_solve`` in
+    the homographies' polish frees device memory (``cudaFree``) at each call.
+
+    The stream is made at the first call, at the highest priority the device offers (a
+    sync there waits behind a few small kernels, not the step's convs), and waits once,
+    then, on the caller's current stream: the data source's uploads. The caller's stream
+    then waits on the card for each batch's end (an event), and each CUDA tensor of the
+    batch is marked as used there (``record_stream``), so that the allocator hands its
+    memory back to the maker only after the caller's work on it. Each batch is counted
+    in :data:`STREAM_BATCHES`, inside a ``fusg.datagen.stream`` span. The draws and the
+    kernels are the maker's own, so the batches are the inline ones, bit for bit. On the
+    CPU, and under stream capture, fake tensors, ``torch.export`` or compilation, ``make``
+    runs inline."""
+    device = torch.device(device)
+    return _OwnStream(make, device) if device.type == "cuda" else make

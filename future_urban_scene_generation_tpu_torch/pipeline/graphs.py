@@ -157,14 +157,17 @@ def _on_card(t) -> bool:
     return type(t) is torch.Tensor and t.device.type == "cuda"
 
 
+def untraced() -> bool:
+    """Nothing tracing, faking, compiling or capturing: eager calls run as written."""
+    return (_get_current_dispatch_mode() is None and not torch.compiler.is_compiling()
+            and not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()))
+
+
 def _engages(leaves) -> bool:
     """Whether a call on these flattened arguments can replay: all plain CUDA tensors,
-    grad off, and nothing tracing, faking, compiling or capturing."""
+    grad off, and :func:`untraced`."""
     return (bool(leaves) and not torch.is_grad_enabled()
-            and all(_on_card(t) for t in leaves)
-            and _get_current_dispatch_mode() is None
-            and not torch.compiler.is_compiling()
-            and not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()))
+            and all(_on_card(t) for t in leaves) and untraced())
 
 
 def _key(fn, static, module: nn.Module, cache: _Cache, leaves, in_spec):

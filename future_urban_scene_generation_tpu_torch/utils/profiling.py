@@ -28,9 +28,9 @@ import torch
 # plane warp's sample and paste spans, and takes ~0.09-0.9 s on an H100: the bf16 cell's
 # window holds ~500-600 scenes, ~9,000-10,000 spans; a scene on the int8 tier leaves 143
 # (a ``fusg.int8`` span for each of its 129 int8 convs) and takes ~0.78 s at V = 16, ~67
-# scenes and ~9,600 spans; an ICN training step leaves 4 (``fusg.datagen`` and its three
-# children) every ~0.21 s, ~250 steps and ~1,000 spans. 16,384 spans hold the largest
-# with room, a few MB.
+# scenes and ~9,600 spans; an ICN training step on the card leaves 5 (``fusg.datagen``,
+# its ``.stream`` child and the maker's three parts) every ~0.18 s, ~290 steps and ~1,450
+# spans. 16,384 spans hold the largest with room, a few MB.
 RING_SPANS = 16384
 
 
